@@ -1,0 +1,74 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+`load_library()` compiles every `scrabblegan_torch/csrc/*.cu` with nvcc for
+sm_90a into one shared library with a plain C interface, under
+`build/scrabblegan_torch/` at the root of the checkout, named by a hash of the
+sources and the flags, so an edit rebuilds and an unchanged tree reuses the
+library. It needs no PyTorch headers, so a build takes seconds. A missing
+nvcc or a failed build raises; nothing but the repository's sources is built
+or loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scrabblegan_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, /usr/local/cuda or the PATH; raises if absent."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+                       "and the PATH): the CUDA kernels cannot be built")
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
+    lib.attention_fwd.restype = i
+    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernels' shared library."""
+    nvcc = find_nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libscrabblegan_kernels_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+                              capture_output=True, text=True)
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    return _declare(ctypes.CDLL(str(lib_path)))
+
+
+def build_log() -> str:
+    """The compiler's output (ptxas register and shared-memory use) of the
+    library `load_library()` loaded."""
+    lib = load_library()
+    return Path(lib._name).with_suffix(".log").read_text()

@@ -1,0 +1,185 @@
+"""Spectrally normalized conv, transposed conv and dense layers (eval mode).
+
+Port of scrabblegan_tpu/ops/layers.py (SNConv, SNConvTranspose, SNDense).
+Parameters are float32, as in flax; each call casts the normalized weight and
+the bias to the layer's compute dtype, as flax's `dtype=` does.
+
+Spectral norm follows flax `nn.SpectralNorm`, not
+`torch.nn.utils.parametrizations.spectral_norm`, which differs in the matrix
+shape, the epsilon and when it iterates:
+- the kernel is viewed as a (-1, out) matrix and u is (1, out);
+- every call runs one power-iteration step from the stored u, eval included,
+  in float32 with eps 1e-12, and divides by the sigma of that step; the stored
+  `sigma` leaf is only ever written by flax, never read.
+
+The torch layouts are OIHW for a conv, (I, O, kh, kw) for a transposed conv
+and (out, in) for a dense kernel. The transposed conv's kernel is stored
+flipped in both spatial axes (see `SNConvTranspose`). Each layer names the
+flax leaves it holds (`flax_leaves`), which `scrabblegan_torch.convert` maps.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+SN_EPS = 1e-12
+
+
+class FlaxLeaf(NamedTuple):
+    """One leaf of a flax variable tree that a port module holds.
+
+    `path` is relative to the module's flax scope, whose names the port's module
+    names mirror. `attr` is the torch parameter or buffer it loads into, or None
+    for a float32 scalar the port does not read (spectral norm's stored sigma).
+    `layout` names the array transform in `scrabblegan_torch.convert`."""
+
+    collection: str  # 'params' | 'batch_stats'
+    path: tuple[str, ...]
+    attr: str | None
+    layout: str  # 'same' | 'conv' | 'conv_transpose' | 'dense'
+
+
+def l2_normalize(x: torch.Tensor, eps: float = SN_EPS) -> torch.Tensor:
+    """flax.linen.normalization._l2_normalize over the whole array."""
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class _SNLayer(nn.Module):
+    """Weight, optional bias and the spectral-norm u vector of one layer."""
+
+    flax_inner = ""  # the flax submodule wrapped by SpectralNorm
+    layout = ""
+    out_axis = 0  # the torch weight's output-channel axis
+
+    def __init__(self, weight_shape: Sequence[int], features: int, use_bias: bool,
+                 use_sn: bool, dtype: torch.dtype, device):
+        super().__init__()
+        self.use_sn = use_sn
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(tuple(weight_shape), device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+        if use_sn:
+            self.register_buffer("u", torch.zeros(1, features, device=device))
+
+    def normalized_weight(self) -> torch.Tensor:
+        """W / sigma(W) in the compute dtype.
+
+        In eval mode W and u are constants, so this is a constant too. It is
+        recomputed on each call, like flax does, rather than cached at load
+        time: three small matrix-vector products next to the layer's own work,
+        and nothing to invalidate when weights are reloaded."""
+        w = self.weight.float()
+        if not self.use_sn:
+            return w.to(self.dtype)
+        # rows in torch order, a permutation of flax's (-1, out) rows: the
+        # power iteration and sigma do not depend on the row order
+        mat = w.movedim(self.out_axis, -1).reshape(-1, w.shape[self.out_axis])
+        v = l2_normalize(self.u.float() @ mat.T)
+        u = l2_normalize(v @ mat)
+        sigma = ((v @ mat) @ u.T)[0, 0]
+        sigma = torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+        return (w / sigma).to(self.dtype)
+
+    def cast_bias(self) -> torch.Tensor | None:
+        return None if self.bias is None else self.bias.to(self.dtype)
+
+    def flax_leaves(self) -> list[FlaxLeaf]:
+        leaves = [FlaxLeaf("params", (self.flax_inner, "kernel"), "weight", self.layout)]
+        if self.bias is not None:
+            leaves.append(FlaxLeaf("params", (self.flax_inner, "bias"), "bias", "same"))
+        if self.use_sn:
+            stem = f"{self.flax_inner}/kernel"
+            leaves += [
+                FlaxLeaf("batch_stats", ("SpectralNorm_0", f"{stem}/u"), "u", "same"),
+                FlaxLeaf("batch_stats", ("SpectralNorm_0", f"{stem}/sigma"), None, "same"),
+            ]
+        return leaves
+
+
+class SNConv(_SNLayer):
+    """Stride-1 'SAME' conv, the form every caller of the JAX SNConv uses."""
+
+    flax_inner = "Conv_0"
+    layout = "conv"
+    out_axis = 0
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int] = (3, 3), use_bias: bool = True,
+                 use_sn: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__((features, in_features, *kernel_size), features,
+                         use_bias, use_sn, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.normalized_weight(), self.cast_bias(), padding="same")
+
+
+def same_transpose_padding(k: int, s: int) -> tuple[int, int]:
+    """(padding, output_padding) of F.conv_transpose2d for one spatial axis.
+
+    lax.conv_transpose(padding='SAME'), which flax's ConvTranspose calls, is a
+    correlation of the stride-dilated input, padded by (pad_a, pad_b), with the
+    kernel as stored. F.conv_transpose2d correlates with the kernel flipped,
+    padded by k-1-padding on the left, so with the flipped kernel stored,
+    padding = k-1-pad_a aligns the first output, and output_padding supplies
+    any right padding torch lacks. The output is then cropped to in*s: at
+    k=3, s=2 torch gives one extra trailing row. Padding 1 with output padding
+    1 instead would shift the output by one pixel."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    padding = k - 1 - pad_a
+    return padding, max(0, s - k + 2 * padding)
+
+
+class SNConvTranspose(_SNLayer):
+    """Transposed conv whose output is exactly input * stride, as flax 'SAME'.
+
+    The weight is (I, O, kh, kw) and holds the flax kernel flipped in both
+    spatial axes (`scrabblegan_torch.convert` flips it). `lowering='subpixel'`
+    is a TPU lowering of the same function; it computes the one transposed
+    conv here."""
+
+    flax_inner = "ConvTranspose_0"
+    layout = "conv_transpose"
+    out_axis = 1
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int] = (3, 3),
+                 strides: tuple[int, int] = (2, 2), use_bias: bool = True,
+                 use_sn: bool = True, lowering: str = "dilated",
+                 dtype: torch.dtype = torch.float32, device=None):
+        if lowering not in ("dilated", "subpixel"):
+            raise ValueError(f"Unknown conv-transpose lowering: {lowering!r}")
+        super().__init__((in_features, features, *kernel_size), features,
+                         use_bias, use_sn, dtype, device)
+        self.strides = tuple(strides)
+        pads = [same_transpose_padding(k, s) for k, s in zip(kernel_size, strides)]
+        self.padding = tuple(p for p, _ in pads)
+        self.output_padding = tuple(o for _, o in pads)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x, self.normalized_weight(), self.cast_bias(),
+                               stride=self.strides, padding=self.padding,
+                               output_padding=self.output_padding)
+        sh, sw = self.strides
+        return y[..., : x.shape[2] * sh, : x.shape[3] * sw]
+
+
+class SNDense(_SNLayer):
+    flax_inner = "Dense_0"
+    layout = "dense"
+    out_axis = 0
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = False,
+                 use_sn: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__((features, in_features), features, use_bias, use_sn,
+                         dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.normalized_weight(), self.cast_bias())

@@ -1,0 +1,145 @@
+"""Parity of the PyTorch port's attention core and NonLocalBlock with the JAX
+package (CPU), and the checks around the CUDA kernel's wrapper.
+
+The CUDA kernel cannot run here; `attention_tiled_emulation` runs its
+algorithm (key tiles, chunked online softmax, deferred division) in plain
+torch and is held to JAX at a shape where K spans many tiles. The kernel
+itself is held to the plain version on the card by chip_smoke.py.
+
+Tolerances: 1e-4 in float32 and 2e-2 in bfloat16, those of the JAX kernel's
+own tests (tests/test_kernels.py)."""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scrabblegan_tpu.kernels.attention import _pallas_forward, _xla_attention
+from scrabblegan_tpu.kernels.attention import nonlocal_attention as jax_nonlocal_attention
+from scrabblegan_tpu.ops.attention import NonLocalBlock as JaxNonLocalBlock
+from scrabblegan_torch import resolve_device
+from scrabblegan_torch.convert import fake_fill, flatten, load_flax
+from scrabblegan_torch.kernels import attention, build
+from scrabblegan_torch.ops.attention import NonLocalBlock
+
+TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def packed_operands(seed, b, q, k, dtype, ca=8, cg=32):
+    rng = np.random.default_rng(seed)
+    mk = lambda c, n: rng.standard_normal((b, c, n)).astype(np.float32)  # noqa: E731
+    ops = (mk(ca, q), mk(ca, k), mk(cg, k))
+    # round to the working dtype once, so both sides see the same inputs
+    jax_ops = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in ops]
+    torch_ops = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype))
+                 for a in jax_ops]
+    return jax_ops, torch_ops
+
+
+def as_np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x.astype(jnp.float32))
+
+
+def xla_packed(thetaT, phiT, gT):
+    T = lambda a: jnp.swapaxes(a, 1, 2)  # noqa: E731
+    return T(_xla_attention(T(thetaT), T(phiT), T(gT)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,k", [(512, 128), (1280, 320)])
+def test_plain_core_matches_pallas_and_xla(q, k, dtype):
+    (jt, jp, jg), (tt, tp, tg) = packed_operands(0, 2, q, k, dtype)
+    got = attention.attention_reference(tt, tp, tg)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 32, q)
+    tol = TOLS[dtype]
+    for ref in (_pallas_forward(jt, jp, jg, interpret=True), xla_packed(jt, jp, jg)):
+        np.testing.assert_allclose(as_np(got), as_np(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("q,k,dtype", [
+    (5120, 1280, "float32"),   # len 10 at G's B3: ten key tiles
+    (1280, 320, "bfloat16"),
+    (300, 75, "float32"),      # ragged: Q not a multiple of 128, K one partial tile
+    (640, 200, "float32"),     # K past a tile edge: a partial second tile
+])
+def test_kernel_tiling_emulation_matches_jax(q, k, dtype):
+    (jt, jp, jg), (tt, tp, tg) = packed_operands(1, 2, q, k, dtype)
+    got = attention.attention_tiled_emulation(tt, tp, tg)
+    tol = TOLS[dtype]
+    np.testing.assert_allclose(as_np(got), as_np(xla_packed(jt, jp, jg)), rtol=tol, atol=tol)
+
+
+def test_emulation_uses_the_kernels_tiles():
+    src = (Path(attention.__file__).parents[1] / "csrc" / "attention_fwd.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))  # noqa: E731
+    assert re.search(r"constexpr int kKt = kThreads;", src)
+    assert (const("kThreads"), const("kKs")) == (attention.KEY_TILE, attention.KEY_CHUNK)
+    assert (const("kCa"), const("kCg")) == (attention.KERNEL_CA, attention.KERNEL_CG)
+
+
+def test_unpacked_entry_matches_jax():
+    rng = np.random.default_rng(2)
+    theta, phi, g = (rng.standard_normal(s).astype(np.float32)
+                     for s in [(2, 256, 8), (2, 64, 8), (2, 64, 32)])
+    ref = np.asarray(jax_nonlocal_attention(theta, phi, g))
+    got = attention.nonlocal_attention(*map(torch.from_numpy, (theta, phi, g)))
+    assert got.shape == (2, 256, 32)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_nonlocal_block_matches_jax(dtype, use_kernel):
+    """G's B3 widths (C=64: Ca=8, Cg=32), sigma = 0.7 so the attention shows."""
+    x = np.random.default_rng(3).standard_normal((2, 8, 24, 64)).astype(np.float32)
+    jm = JaxNonLocalBlock(use_pallas=True, dtype=getattr(jnp, dtype))
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)}, x, train=False))
+    v = fake_fill({p: s.shape for p, s in flatten(shapes).items()}, seed=4)
+    v["params"]["sigma"] = np.float32(0.7)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    ref = np.asarray(jm.apply(v, xj, train=False).astype(jnp.float32))
+    port = load_flax(NonLocalBlock(64, use_kernel=use_kernel, dtype=getattr(torch, dtype)), v)
+    xt = torch.from_numpy(np.asarray(xj.astype(jnp.float32)).transpose(0, 3, 1, 2).copy())
+    with torch.inference_mode():
+        got = port(xt.to(getattr(torch, dtype))).float().permute(0, 2, 3, 1).numpy()
+    without_attention = np.asarray(xj.astype(jnp.float32))
+    assert np.abs(ref - without_attention).max() > 0.1  # the block is not the identity
+    tol = TOLS[dtype]
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dataflow,error", [
+    ("fused", NotImplementedError), ("bogus", ValueError)])
+def test_nonlocal_block_dataflows(dataflow, error):
+    for ok in ("nhwc", "nhwc1", "packed"):
+        NonLocalBlock(64, dataflow=ok)
+    with pytest.raises(error):
+        NonLocalBlock(64, dataflow=dataflow)
+
+
+def test_wrapper_checks_and_cpu_dispatch():
+    (_, _, _), (tt, tp, tg) = packed_operands(5, 1, 128, 32, "float32")
+    before = attention.launches
+    out = attention.nonlocal_attention_packed(tt, tp, tg)
+    assert attention.launches == before  # the CPU takes the plain version
+    torch.testing.assert_close(out, attention.attention_reference(tt, tp, tg))
+    with pytest.raises(TypeError):
+        attention.nonlocal_attention_packed(tt.half(), tp.half(), tg.half())
+    with pytest.raises(ValueError):
+        attention.nonlocal_attention_packed(tt, tp[:, :, :16], tg)
+    with pytest.raises(ValueError):
+        attention.nonlocal_attention_packed(tt[:, :, :0], tp, tg)
+
+
+def test_cuda_requests_raise_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.load_library.__wrapped__()
