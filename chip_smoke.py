@@ -1,23 +1,45 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card (written for an H100).
 
-Drives the port's serving path, the generator from (labels, z) to word images
-at the full widths of the repo's generator (vocab 52, filter bank (32, 8192),
-channels 512/256/128/64, bf16, noise z), with random weights made from a
-seed, through the hand-written attention CUDA kernel. Phases, one line each:
+Drives the port's two paths at the full widths of the repo's networks, with
+random weights made from a seed, through the hand-written attention CUDA
+kernels: the serving path, the generator from (labels, z) to word images
+(vocab 52, filter bank (32, 8192), channels 512/256/128/64, bf16, noise z),
+and the four-network train step (G, D, R, W at batch 16). Phases, one line
+each or more:
 
 1. device: a CUDA card is required; its name and power limit (nvidia-smi);
 2. build: nvcc builds scrabblegan_torch/csrc for sm_90a; build seconds;
-3. kernel vs plain core at G's B3 shapes (Q = 512L, K = 128L for L = 1, 5, 10,
-   and a ragged Q = 300, K = 75), float32 within 1e-4 and bfloat16 within
-   2e-2 (absolute plus relative), the tolerances of the JAX kernel's tests;
+3. kernel vs plain core at G's B3 shapes (Q = 512L, K = 128L for L = 1, 5, 10),
+   at D's and W's B1 shapes (Q = 128L, K = 32L) and at a ragged Q = 300,
+   K = 75, float32 within 1e-4 and bfloat16 within 2e-2 (absolute plus
+   relative), the tolerances of the JAX kernel's tests;
 4. the generator at batch 1024, len 5 and len 10, through the kernel: one
    launch per forward; finite images in [-1, 1]; agreement with the same
    generator on the plain core at batch 16 (bf16, 2e-2) and with the CPU
    port at batch 2 (float32, 1e-3); padded mode's white-out;
 5. serve: scrabblegan_torch.infer.main on an .npz of those weights;
 6. times (CUDA events after a warm-up): kernel and plain core at B3, and the
-   generator's images/s, each printed with the card's name and power limit.
+   generator's images/s, each printed with the card's name and power limit;
+7. the backward kernel vs the plain backward at every shape the step runs
+   (G's B3 and D/W's B1 at L = 1, 5, 10, the style images' (1280, 320), a
+   ragged (300, 75)), batch 4, float32 within 2e-4 (TF32 off) and bfloat16
+   within 2e-2; two backward runs bitwise equal; at the B1 shapes and the
+   ragged one, in float32 and bfloat16, the autograd Function (both kernels):
+   its output vs the plain core, its grads vs autograd through the plain core;
+8. the train step at batch 16 for configs/recommended.json (padded) and for
+   the JAX bench's bucketed len-5 config, from seeded flax-layout weights
+   (attention sigma != 0): 10 steps each through the kernels, finite
+   metrics, 7 forward and 7 backward launches a step; step 1 (metrics,
+   gradients, updated parameters) against the same step on the plain cores;
+   one float32 step at batch 2, len 2 on the card against the CPU port;
+9. the train CLI (3 steps, export G) and the inference CLI serving the
+   export with noise z;
+10. times: the backward kernel vs the plain backward (batch 16 and 256), the
+   train steps/s on the kernels and on the plain cores (four turns of 50
+   steps; window means and the median of per-step times), and a profiler
+   trace of 5 steps (device busy share, kernel launches a step, top kernel
+   classes), each printed with the card's name and power limit.
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and the exit code is
@@ -28,6 +50,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -90,9 +113,12 @@ def b3_operands(batch: int, q: int, k: int, dtype, gen: torch.Generator):
 
 
 def check_kernel(attention, gen) -> float:
-    """Phase 3: kernel vs plain at G's B3 shapes; returns the largest error."""
+    """Phase 3: kernel vs plain at G's B3 shapes, D's and W's B1 shapes (the
+    train step's, Q = 128L, K = 32L) and a ragged one; returns the largest
+    error."""
     worst = 0.0
-    cases = [(512 * n, 128 * n) for n in (1, 5, 10)] + [(300, 75)]
+    cases = [(512 * n, 128 * n) for n in (1, 5, 10)]
+    cases += [(128 * n, 32 * n) for n in (1, 5, 10)] + [(300, 75)]
     for dtype in (torch.float32, torch.bfloat16):
         for q, k in cases:
             ops = b3_operands(4, q, k, dtype, gen)
@@ -127,6 +153,338 @@ def check_images(images: torch.Tensor, batch: int, length: int) -> None:
         raise AssertionError("images not finite or outside [-1, 1]")
 
 
+# ---- phases 7-10: the train step and the backward kernel ----------------------
+
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py:71-72; bf16 ulp
+TRAIN_BATCH = 16
+TRAIN_STEPS = 10
+TIME_STEPS = 50  # steps a timed turn (phase 10)
+FWD_PER_STEP = BWD_PER_STEP = 7  # D B1 x3, W B1 x3, G B3 x1 ('adversarial', dead pass skipped)
+# kernel vs plain cores, step 1 (bf16 D/W trunks, where the two cores round
+# the attention output to bf16 at other places): metrics within tol x
+# (1 + |value|), and each gradient leaf in the norm relative to max(its norm,
+# 1e-2 x the network's largest); about 3x the largest errors measured on an
+# H100 (3.3e-4; G 9.2e-3, D 2.6e-2, R 1.1e-6, W 2.2e-2)
+STEP_TOL_METRICS = 2e-3
+STEP_TOL_GRAD = {"g": 3e-2, "d": 8e-2, "r": 1e-4, "w": 8e-2}
+# card vs CPU, float32 step at batch 2, len 2 (TF32 off); measured on two
+# calls 1.9e-4 on metrics of up to ~25, G 6.7e-5 and 8.4e-3 (cuDNN picks its
+# algorithms per call; G's gradient is ill-conditioned, tests/
+# test_torch_step_parity.py), D 5.3e-6, R 3.8e-6, W 7.5e-6. The two balanced
+# metrics scale by std(g_loss) over a batch of 2, a difference of two nearly
+# equal numbers: 1e-6 on g_loss is 1% there.
+CPU_TOL_METRICS = 1e-4
+CPU_TOL_BALANCED = 5e-2
+CPU_TOL_GRAD = {"g": 3e-2, "d": 1e-4, "r": 1e-4, "w": 1e-4}
+NETWORK_NAMES = {"g": "generator", "d": "discriminator", "r": "recognizer",
+                 "w": "style_promoter"}
+
+
+def bwd_shapes() -> list[tuple[str, int, int]]:
+    shapes = [(f"G B3 len {n}", 512 * n, 128 * n) for n in (1, 5, 10)]
+    shapes += [(f"D/W B1 len {n}", 128 * n, 32 * n) for n in (1, 5, 10)]
+    return shapes + [("style images", 1280, 320), ("ragged", 300, 75)]
+
+
+def bwd_operands(batch: int, q: int, k: int, dtype, gen: torch.Generator):
+    return [torch.randn(batch, c, n, generator=gen, device="cuda").to(dtype)
+            for c, n in ((8, q), (8, k), (32, k), (32, q))]
+
+
+def check_backward_kernel(attention, gen) -> float:
+    """Phase 7; returns the largest error against the plain backward."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, q, k in bwd_shapes():
+            ops = bwd_operands(4, q, k, dtype, gen)
+            got = attention._launch_backward(*ops)
+            again = attention._launch_backward(*ops)
+            ref = attention.attention_backward_reference(*ops)
+            torch.cuda.synchronize()
+            errs = [check_close(f"backward {name} at {what} {dtype}", g, r, BWD_TOL[dtype])
+                    for name, g, r in zip(("dtheta", "dphi", "dg"), got, ref)]
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"backward at {what} {dtype}: two runs differ")
+            say("7 backward-vs-plain", what=what, dtype=str(dtype), q=q, k=k, batch=4,
+                max_abs_err=errs, tol=BWD_TOL[dtype], deterministic=True)
+            worst = max(worst, *errs)
+    # the autograd Function (forward and backward kernels) at D's and W's B1
+    # shapes: its output against the plain core in the same dtype, its grads
+    # against autograd through the plain core in float32 on the same
+    # (rounded) operands, which the kernels' float32 math matches up to the
+    # rounding of the stored grads
+    b1 = [(what, q, k) for what, q, k in bwd_shapes() if what.startswith("D/W")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, q, k in b1 + [("ragged", 300, 75)]:
+            th, ph, g, d = bwd_operands(2, q, k, dtype, gen)
+            xs = [t.clone().requires_grad_() for t in (th, ph, g)]
+            out = attention.nonlocal_attention_packed(*xs)
+            out.backward(d)
+            fwd_err = check_close(f"autograd Function forward at {what} {dtype}", out,
+                                  attention.attention_reference(th, ph, g), TOL[dtype])
+            ys = [t.clone().float().requires_grad_() for t in (th, ph, g)]
+            attention.attention_reference(*ys).backward(d.float())
+            errs = [check_close(f"autograd Function grads at {what} {dtype}", x.grad, y.grad,
+                                BWD_TOL[dtype]) for x, y in zip(xs, ys)]
+            say("7 autograd-function-vs-plain", what=what, dtype=str(dtype), q=q, k=k,
+                fwd_max_abs_err=fwd_err, fwd_tol=TOL[dtype], grad_max_abs_err=errs,
+                grad_tol=BWD_TOL[dtype])
+            worst = max(worst, *errs)
+    return worst
+
+
+def train_configs(load_config) -> dict:
+    """The two configurations of the slice, at batch 16."""
+    return {"recommended (padded)": load_config(str(ROOT / "configs" / "recommended.json")),
+            "bench bucketed len 5": load_config(None, {
+                "shared.batch_size": TRAIN_BATCH, "io.seq_len": 5, "shared.num_gen": 4,
+                "shared.trunk_dtype": "bfloat16"})}
+
+
+def with_core(cfg, use_kernel: bool):
+    return dataclasses.replace(cfg, shared=dataclasses.replace(
+        cfg.shared, use_pallas_attention=use_kernel))
+
+
+def fake_trees(cfg, seed: int = 0) -> dict:
+    from scrabblegan_torch.convert import fake_flax_variables
+    return {n: fake_flax_variables(cfg, seed, name) for n, name in NETWORK_NAMES.items()}
+
+
+def state_of(cfg, trees: dict, device):
+    from scrabblegan_torch.convert import state_from_flax
+    return state_from_flax(cfg, {n: t["params"] for n, t in trees.items()},
+                           {n: t.get("batch_stats", {}) for n, t in trees.items()}, device)
+
+
+def gradient_check(state, ref_state, tols: dict, beta_2: float) -> tuple[dict, dict]:
+    """Two states after their first step from one start, held by the rule of
+    scrabblegan_torch.train.compare. Per network: the largest leaf error of
+    |g| (read from lean Adam's nu) relative to its scale, and the count of
+    elements, among those whose sign the rule checks at `tols`, whose updated
+    parameter differs from the reference's by more than 1e-6 (Adam's first
+    update is +-lr there, so a mismatch is a flipped gradient sign)."""
+    from scrabblegan_torch.train import compare
+
+    errs, flips = {}, {}
+    for net in "gdrw":
+        got, want = (compare.abs_grads([v.float().cpu().numpy() for v in s.opt_states[net].nu],
+                                       beta_2) for s in (state, ref_state))
+        leaf_errs, scales = compare.gradient_errors(got, want)
+        errs[net] = max(leaf_errs)
+        flips[net] = 0
+        for p, q, g, scale in zip(state.params(net), ref_state.params(net), want, scales):
+            moved = (p.detach().float().cpu() - q.detach().float().cpu()).abs().numpy() > 1e-6
+            flips[net] += int(moved[compare.sign_mask(g, tols[net] * scale)].sum())
+    return errs, flips
+
+
+def check_train_step(attention, load_config, synthetic_batch, make_train_step,
+                     METRIC_NAMES) -> dict:
+    """Phase 8; returns {config: (kernel state, plain state, batches, cfg)}
+    for the timings, and the launches of the kernel-path runs."""
+    rng = np.random.default_rng(0)
+    runs, launches = {}, {"fwd": 0, "bwd": 0}
+    for name, cfg in train_configs(load_config).items():
+        trees = fake_trees(cfg)
+        length = cfg.io.seq_len or 5
+        batches = [synthetic_batch(cfg, TRAIN_BATCH, length, rng) for _ in range(TRAIN_STEPS)]
+        kcfg, pcfg = with_core(cfg, True), with_core(cfg, False)
+        kstate, pstate = state_of(kcfg, trees, "cuda"), state_of(pcfg, trees, "cuda")
+        kstep, pstep = make_train_step(kcfg, kstate.models), make_train_step(pcfg, pstate.models)
+        torch.cuda.synchronize()
+        attention.launches = attention.bwd_launches = 0
+        metrics = [kstep(kstate, b) for b in batches]
+        torch.cuda.synchronize()
+        fwd, bwd = attention.launches, attention.bwd_launches
+        if (fwd, bwd) != (FWD_PER_STEP * TRAIN_STEPS, BWD_PER_STEP * TRAIN_STEPS):
+            raise AssertionError(f"{name}: {fwd} forward and {bwd} backward launches in "
+                                 f"{TRAIN_STEPS} steps")
+        launches["fwd"] += fwd
+        launches["bwd"] += bwd
+        values = np.array([[float(m[k]) for k in METRIC_NAMES] for m in metrics])
+        if not np.isfinite(values).all():
+            raise AssertionError(f"{name}: non-finite metrics")
+        say("8 train step", config=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+            fwd_launches_per_step=fwd / TRAIN_STEPS, bwd_launches_per_step=bwd / TRAIN_STEPS,
+            first=dict(zip(METRIC_NAMES, values[0].tolist())),
+            last=dict(zip(METRIC_NAMES, values[-1].tolist())))
+        # step 1 on the plain cores, from the same start, on the same batch
+        plain = pstep(pstate, batches[0])
+        torch.cuda.synchronize()
+        if (attention.launches, attention.bwd_launches) != (fwd, bwd):
+            raise AssertionError("the plain-core step launched a kernel")
+        ref = state_of(kcfg, trees, "cuda")
+        kernel1 = make_train_step(kcfg, ref.models)(ref, batches[0])
+        errs = {k: abs(float(kernel1[k]) - float(plain[k])) for k in METRIC_NAMES}
+        bad = [k for k in METRIC_NAMES if errs[k] > STEP_TOL_METRICS * (1 + abs(float(plain[k])))]
+        grads, flips = gradient_check(ref, pstate, STEP_TOL_GRAD, cfg.optimizer.beta_2)
+        if bad or any(grads[n] > STEP_TOL_GRAD[n] for n in grads) or any(flips.values()):
+            raise AssertionError(f"{name}: kernel vs plain step 1: metrics {bad}, grads {grads}, "
+                                 f"updated parameters {flips}")
+        say("8 train step kernel-vs-plain", config=name, step=1,
+            max_metric_err=max(errs.values()), tol_metrics=STEP_TOL_METRICS,
+            grad_norm_err=grads, tol_grads=STEP_TOL_GRAD, updated_param_mismatches=flips)
+        attention.launches, attention.bwd_launches = fwd, bwd
+        del ref
+        runs[name] = (kstate, pstate, batches, kcfg, pcfg)
+    return runs, launches
+
+
+def check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step,
+                                 METRIC_NAMES) -> None:
+    """Phase 8: one float32 step at batch 2, len 2 on the card (kernels, TF32
+    off) and on the CPU (plain cores), from the same weights and batch."""
+    cfg = load_config(None, {"shared.batch_size": 2, "io.seq_len": 2})
+    trees = fake_trees(cfg, seed=1)
+    batch = synthetic_batch(cfg, 2, 2, np.random.default_rng(1))
+    card, cpu = state_of(cfg, trees, "cuda"), state_of(cfg, trees, "cpu")
+    m_card = make_train_step(cfg, card.models)(card, batch)
+    m_cpu = make_train_step(cfg, cpu.models)(cpu, batch)
+    errs = {k: abs(float(m_card[k]) - float(m_cpu[k])) for k in METRIC_NAMES}
+    tols = {k: CPU_TOL_BALANCED if k.endswith("_balanced") else CPU_TOL_METRICS
+            for k in METRIC_NAMES}
+    bad = {k: errs[k] for k in METRIC_NAMES if errs[k] > tols[k] * (1 + abs(float(m_cpu[k])))}
+    grads, flips = gradient_check(card, cpu, CPU_TOL_GRAD, cfg.optimizer.beta_2)
+    stats = max((a.float().cpu() - b.float()).abs().max().item()
+                for a, b in zip(card.models.generator.buffers(), cpu.models.generator.buffers()))
+    if bad or any(grads[n] > CPU_TOL_GRAD[n] for n in grads) or stats > 1e-3 or any(
+            flips.values()):
+        raise AssertionError(f"card vs CPU step: metrics {bad}, grads {grads}, G stats {stats}, "
+                             f"updated parameters {flips}")
+    say("8 train step card-vs-cpu", dtype="float32", batch=2, length=2, metric_errs=errs,
+        tol_metrics=CPU_TOL_METRICS, tol_balanced=CPU_TOL_BALANCED, grad_norm_err=grads,
+        tol_grads=CPU_TOL_GRAD, g_stats_max_abs_err=stats, updated_param_mismatches=flips)
+
+
+def check_train_cli(attention, train_main, infer_main) -> None:
+    """Phase 9: 3 steps of the train CLI (recommended config, batch 16), the
+    export of G, served with noise z."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    g_path = OUT_DIR / "trained_g.npz"
+    before = attention.bwd_launches
+    train_main(["--device", "cuda", "--steps", "3", "--export-g", str(g_path)])
+    if attention.bwd_launches != before + 3 * BWD_PER_STEP:
+        raise AssertionError("the train CLI did not run the backward kernel")
+    out_path = OUT_DIR / "trained_hopper.npy"
+    infer_main(["--weights", str(g_path), "--word", "Hopper", "-n", "4", "--device", "cuda",
+                "--out", str(out_path), "--config", str(ROOT / "configs" / "recommended.json")])
+    served = np.load(out_path)
+    if served.shape != (4, 32, 96, 1) or not np.isfinite(served).all() or np.abs(served).max() > 1:
+        raise AssertionError(f"served the trained G: {served.shape}")
+    say("9 train cli", steps=3, export=str(g_path.relative_to(ROOT)),
+        served=str(out_path.relative_to(ROOT)), shape=served.shape)
+
+
+def time_backward(attention, gen, card: str) -> dict:
+    """Phase 10: backward kernel vs plain backward; returns ms at G B3 len 5,
+    batch 16, float32 (the train step's shape)."""
+    out = {}
+    for what, q, k, dtype in (("G B3 len 5", 2560, 640, torch.float32),
+                              ("G B3 len 10", 5120, 1280, torch.float32),
+                              ("D B1 len 5", 640, 160, torch.bfloat16)):
+        for batch in (TRAIN_BATCH, 256):
+            ops = bwd_operands(batch, q, k, dtype, gen)
+            kernel_ms = cuda_ms(lambda: attention._launch_backward(*ops), 10)
+            plain_ms = cuda_ms(lambda: attention.attention_backward_reference(*ops), 5)
+            say("10 time backward", card=card, what=what, q=q, k=k, batch=batch,
+                dtype=str(dtype), tf32=False, kernel_ms=kernel_ms, plain_ms=plain_ms)
+            out[(what, batch)] = (kernel_ms, plain_ms)
+            del ops
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_train_steps(runs: dict, make_train_step, card: str) -> None:
+    """Phase 10: steps/s of both configurations on the kernels and on the
+    plain cores, in turns plain, kernel, kernel, plain of TIME_STEPS steps
+    each (the batches in a cycle), after two warm-up steps. A CUDA event is
+    recorded before each step and after the last, with one synchronise at
+    the end of the turn, so each step's time is the interval between its
+    events, whichever of the host and the device sets the pace. Printed per
+    core: the window means of its turns, and the median and the 10th and
+    90th percentiles of its per-step times."""
+    for name, (kstate, pstate, batches, kcfg, pcfg) in runs.items():
+        steps = {"kernel": (kstate, make_train_step(kcfg, kstate.models)),
+                 "plain": (pstate, make_train_step(pcfg, pstate.models))}
+        for state, step in steps.values():
+            step(state, batches[0])
+            step(state, batches[1])
+        window = {"kernel": [], "plain": []}
+        per_step = {"kernel": [], "plain": []}
+        for core in ("plain", "kernel", "kernel", "plain"):
+            state, step = steps[core]
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(TIME_STEPS + 1)]
+            torch.cuda.synchronize()
+            for i in range(TIME_STEPS):
+                events[i].record()
+                step(state, batches[i % len(batches)])
+            events[-1].record()
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            window[core].append(sum(ms) / TIME_STEPS)
+            per_step[core] += ms
+        for core in window:
+            p10, p50, p90 = np.percentile(per_step[core], [10, 50, 90]).tolist()
+            say("10 time train step", card=card, config=name, core=core, batch=TRAIN_BATCH,
+                tf32=False, steps_per_turn=TIME_STEPS, turns="plain, kernel, kernel, plain",
+                window_ms_per_step=window[core], median_ms_per_step=p50,
+                p10_p90_ms_per_step=[p10, p90], median_steps_per_s=1e3 / p50,
+                mean_steps_per_s=1e3 * len(per_step[core]) / sum(per_step[core]))
+
+
+def profile_train_steps(runs: dict, make_train_step, card: str) -> None:
+    """Phase 10: torch.profiler over 5 steps of the bench len-5 config on each
+    core: device busy share (union of kernel intervals over the span from the
+    first kernel's start to the last's end), kernels a step, and the top
+    kernels by device time."""
+    kstate, pstate, batches, kcfg, pcfg = runs["bench bucketed len 5"]
+    for core, state, cfg in (("kernel", kstate, kcfg), ("plain", pstate, pcfg)):
+        profile_steps(core, state, make_train_step(cfg, state.models), batches[:5], card)
+
+
+def profile_steps(core: str, state, step, batches: list, card: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(batches)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    by_name: dict = {}
+    for e in kernels:
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.end - e.time_range.start
+        t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    attn = {k: (t / n / 1e3, c / n) for k, (t, c) in by_name.items() if "attention_" in k}
+    table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=30)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / f"profile_train_step_{core}.txt").write_text(table)
+    say("10 profile train step", card=card, config="bench bucketed len 5", core=core,
+        steps=n, wall_ms_per_step=1e3 * wall / n, device_busy_share=busy / span,
+        device_busy_ms_per_step=busy / n / 1e3, kernels_per_step=len(kernels) / n,
+        attention_kernels_ms_and_count_per_step=attn,
+        top_kernels_ms_per_step=[(k[:90], t / n / 1e3, c / n) for k, (t, c) in top])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -138,7 +496,10 @@ def main() -> int:
                                            save_flax_npz)
     from scrabblegan_torch.infer import main as infer_main
     from scrabblegan_torch.kernels import attention, build
-    from scrabblegan_torch.models.build import noise_config
+    from scrabblegan_torch.models.build import load_config, noise_config
+    from scrabblegan_torch.train import main as train_main
+    from scrabblegan_torch.train.cli import synthetic_batch
+    from scrabblegan_torch.train.step import METRIC_NAMES, make_train_step
 
     # 1. device
     card = card_line()
@@ -150,9 +511,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.load_library()
     build_s = time.perf_counter() - t0
-    tiles = (lib.attention_fwd_key_tile(), lib.attention_fwd_key_chunk())
-    if tiles != (attention.KEY_TILE, attention.KEY_CHUNK):
-        raise AssertionError(f"kernel tiles {tiles} differ from the CPU emulation's")
+    tiles = (lib.attention_fwd_key_tile(), lib.attention_fwd_key_chunk(),
+             lib.attention_bwd_tile())
+    if tiles != (attention.KEY_TILE, attention.KEY_CHUNK, attention.BWD_TILE):
+        raise AssertionError(f"kernel tiles {tiles} differ from the CPU emulations'")
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
     say("2 build", seconds=build_s, ptxas=ptxas)
@@ -257,13 +619,36 @@ def main() -> int:
         say("6 time generator", card=card, dtype="bfloat16", length=5, batch=BATCH,
             core="plain", ms_per_batch=ms, images_per_s=BATCH / ms * 1e3)
 
+    # 7. the backward kernel vs the plain backward
+    bwd_err = check_backward_kernel(attention, gen)
+
+    # 8. the train step at full width; the counts are reset just before each
+    # configuration's kernel-path run and read just after it
+    runs, train_launches = check_train_step(attention, load_config, synthetic_batch,
+                                            make_train_step, METRIC_NAMES)
+    check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step, METRIC_NAMES)
+
+    # 9. the train CLI and the served export
+    check_train_cli(attention, train_main, infer_main)
+
+    # 10. times
+    bwd_ms = time_backward(attention, gen, card)
+    time_train_steps(runs, make_train_step, card)
+    profile_train_steps(runs, make_train_step, card)
+
     kernel_ms, plain_ms = core_ms[5]  # the same shape: batch 1024
-    print(json.dumps({"kernels": [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "scrabblegan_torch/csrc/attention_fwd.cu",
-        "replaces": "scrabblegan_tpu/kernels/attention.py:111",
-        "launches": main_path_launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    bwd_kernel_ms, bwd_plain_ms = bwd_ms[("G B3 len 5", TRAIN_BATCH)]
+    print(json.dumps({"kernels": [
+        {"name": "attention_fwd", "route": "cuda",
+         "source": "scrabblegan_torch/csrc/attention_fwd.cu",
+         "replaces": "scrabblegan_tpu/kernels/attention.py:111",
+         "launches": train_launches["fwd"], "serving_launches": main_path_launches,
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "scrabblegan_torch/csrc/attention_bwd.cu",
+         "replaces": "scrabblegan_tpu/kernels/attention.py:195",
+         "launches": train_launches["bwd"], "max_abs_err": bwd_err,
+         "ms": bwd_kernel_ms, "plain_ms": bwd_plain_ms}]}))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax"))
     if loaded:
         raise AssertionError(f"JAX modules were imported: {loaded[:5]}")

@@ -7,9 +7,10 @@ trees by `scrabblegan_torch.convert`) and is held to the JAX output by the
 JAX, flax, optax or orbax; it reuses only the JAX package's framework-free host
 modules (`config`, `data.loaders.encode_word`, `utils.viz`).
 
-Layout is NCHW throughout. The attention core, the one TPU kernel on the
-generator's serving path, runs as a hand-written CUDA kernel for sm_90a
-(`csrc/attention_fwd.cu`, bound in `kernels/attention.py`).
+Layout is NCHW throughout. The attention core's forward and backward, the
+TPU kernels on the serving path and the train step, run as hand-written CUDA
+kernels for sm_90a (`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`, bound
+in `kernels/attention.py`).
 """
 
 from __future__ import annotations

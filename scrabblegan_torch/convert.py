@@ -8,11 +8,14 @@ mirrors its flax scope, so the map from one tree to the other is mechanical:
 - transposed-conv kernels HWIO -> (I, O, kh, kw), flipped in both spatial axes
   (see ops/layers.py SNConvTranspose);
 - dense kernels (in, out) -> (out, in);
-- biases, BN scale/mean/var, the filter bank, spectral norm's u and the
-  attention's sigma as they are. Spectral norm's stored sigma is not read.
+- biases, BN scale/mean/var, the filter bank, spectral norm's u and sigma
+  and the attention's sigma as they are.
 
-On disk a tree is a flat .npz whose keys are the flax paths joined by '.'
-(flax names hold no '.'; spectral norm's leaf names hold '/').
+`load_flax` and `to_flax` map one module both ways; `state_from_flax` loads
+the four networks of a JAX TrainState (`g_params`/`g_stats`, ...) into the
+port's train state. On disk a tree is a flat .npz whose keys are the flax
+paths joined by '.' (flax names hold no '.'; spectral norm's leaf names hold
+'/').
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import torch
 from torch import nn
 
 from scrabblegan_tpu.config import Config
-from scrabblegan_torch.models.build import build_generator
+from scrabblegan_torch.models.build import build_generator, build_models
 from scrabblegan_torch.models.generator import Generator
+from scrabblegan_torch.ops.layers import FlaxLeaf
 
 Path = tuple[str, ...]
 
@@ -63,15 +67,14 @@ def unflatten(flat: Mapping[Path, object]) -> dict:
     return tree
 
 
-def flax_leaves(module: nn.Module) -> Iterator[tuple[Path, str | None, str]]:
-    """(flax path, torch state_dict key or None, layout) of every leaf."""
+def flax_leaves(module: nn.Module) -> Iterator[tuple[Path, str, FlaxLeaf]]:
+    """(flax path, torch state_dict key, leaf) of every leaf."""
     for name, mod in module.named_modules():
         if not hasattr(mod, "flax_leaves"):
             continue
         scope = tuple(name.split(".")) if name else ()
         for leaf in mod.flax_leaves():
-            key = None if leaf.attr is None else ".".join(scope + (leaf.attr,))
-            yield (leaf.collection, *scope, *leaf.path), key, leaf.layout
+            yield (leaf.collection, *scope, *leaf.path), ".".join(scope + (leaf.attr,)), leaf
 
 
 def load_flax(module: nn.Module, variables: Mapping) -> nn.Module:
@@ -80,18 +83,42 @@ def load_flax(module: nn.Module, variables: Mapping) -> nn.Module:
     Raises on a missing, unexpected or misshapen leaf."""
     flat = flatten(variables)
     state, seen = {}, set()
-    for path, key, layout in flax_leaves(module):
+    for path, key, leaf in flax_leaves(module):
         if path not in flat:
             raise KeyError(f"the flax variables lack {'/'.join(path)}")
         seen.add(path)
-        if key is not None:
-            arr = _TO_TORCH[layout](np.asarray(flat[path], np.float32))
-            state[key] = torch.from_numpy(arr.copy(order="C"))  # fresh strides
+        arr = _TO_TORCH[leaf.layout](np.asarray(flat[path], np.float32))
+        state[key] = torch.from_numpy(arr.copy(order="C"))  # fresh strides
     extra = sorted("/".join(p) for p in set(flat) - seen)
     if extra:
         raise KeyError(f"unexpected flax leaves: {extra[:5]} ({len(extra)} in all)")
     module.load_state_dict(state, strict=True)
     return module
+
+
+def to_flax(module: nn.Module, state: Mapping[str, torch.Tensor] | None = None) -> dict:
+    """The flax {"params", "batch_stats"} tree of float32 numpy arrays that
+    `load_flax` would load into `module`: its inverse. `state` overrides
+    entries of the module's state_dict (e.g. its parameters' EMA)."""
+    state = {**module.state_dict(), **(state or {})}
+    return unflatten({path: np.array(
+        _TO_FLAX[leaf.layout](state[key].detach().float().cpu().numpy()), order="C")
+        for path, key, leaf in flax_leaves(module)})
+
+
+def state_from_flax(cfg: Config, params: Mapping[str, Mapping],
+                    batch_stats: Mapping[str, Mapping], device: str | torch.device = "cpu"):
+    """The port's TrainState for `cfg` holding a JAX TrainState's networks:
+    params["g"] and batch_stats["g"] are its `g_params` and `g_stats`, and so
+    for "d", "r" and "w". The optimizer states start empty, the step at 0 and
+    the G EMA (when `optimizer.g_ema_decay` > 0) at G's parameters."""
+    # train.state builds on this module, so it is imported here
+    from scrabblegan_torch.train.state import new_train_state
+
+    models = build_models(cfg, device)
+    for net, (_, module) in zip("gdrw", models.items()):
+        load_flax(module, {"params": params[net], "batch_stats": batch_stats.get(net, {})})
+    return new_train_state(cfg, models)
 
 
 def generator_from_flax(variables: Mapping, cfg: Config,
@@ -141,19 +168,19 @@ def flax_shapes(module: nn.Module) -> dict[Path, tuple[int, ...]]:
     """{flax path: shape} of the tree `module` loads (build it on 'meta')."""
     state = module.state_dict()
     shapes = {}
-    for path, key, layout in flax_leaves(module):
-        if key is None:
-            shapes[path] = ()
-        else:
-            view = np.broadcast_to(np.float32(0), tuple(state[key].shape))
-            shapes[path] = _TO_FLAX[layout](view).shape
+    for path, key, leaf in flax_leaves(module):
+        view = np.broadcast_to(np.float32(0), tuple(state[key].shape))
+        shapes[path] = _TO_FLAX[leaf.layout](view).shape
     return shapes
 
 
-def fake_flax_variables(cfg: Config, seed: int = 0) -> dict:
-    """The flax-layout tree that JAX `Generator.init` builds for `cfg`, filled
-    by `fake_fill`, made with numpy alone."""
-    return fake_fill(flax_shapes(build_generator(cfg, "meta")), seed)
+def fake_flax_variables(cfg: Config, seed: int = 0, network: str = "generator") -> dict:
+    """The flax-layout tree that JAX `<network>.init` builds for `cfg`, filled
+    by `fake_fill`, made with numpy alone. `network` is a `ModelBundle` field:
+    'generator', 'discriminator', 'recognizer' or 'style_promoter'."""
+    module = (build_generator(cfg, "meta") if network == "generator"
+              else getattr(build_models(cfg, "meta"), network))
+    return fake_fill(flax_shapes(module), seed)
 
 
 def save_flax_npz(path: str, variables: Mapping) -> None:

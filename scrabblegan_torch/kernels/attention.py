@@ -1,18 +1,21 @@
-"""Non-local attention core: the plain PyTorch version and the CUDA kernel.
+"""Non-local attention core: the plain PyTorch versions and the CUDA kernels.
 
-Port of the forward core of scrabblegan_tpu/kernels/attention.py: the Pallas
-TPU kernel `_attention_kernel` (through `_pallas_forward`) becomes the sm_90a
-CUDA kernel in `scrabblegan_torch/csrc/attention_fwd.cu`. The operands are
-channel-packed as there: thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) ->
-outT (B, Cg, Q), with
+Port of the core of scrabblegan_tpu/kernels/attention.py: the Pallas TPU
+kernels `_attention_kernel` (through `_pallas_forward`) and
+`_attention_bwd_kernel` (through `_pallas_backward`) become the sm_90a CUDA
+kernels in `scrabblegan_torch/csrc/attention_fwd.cu` and `attention_bwd.cu`,
+joined by the autograd Function `AttentionCore` as JAX joins them by the
+custom VJP `_attention_op`. The operands are channel-packed as there:
+thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) -> outT (B, Cg, Q), with
 
     outT[b, :, q] = sum_k softmax_k(thetaT[b, :, q] . phiT[b, :, k]) gT[b, :, k]
 
 unscaled (no 1/sqrt(d)), float32 or bfloat16 in and out, float32 inside.
 
-Dispatch has no fallback: a CPU tensor takes `attention_reference`; a CUDA
-tensor launches the kernel or raises. `launches` counts kernel launches.
-The backward kernel and the fused-block kernel are not ported yet.
+Dispatch has no fallback: a CPU tensor takes `attention_reference`, which
+autograd differentiates; a CUDA tensor goes through `AttentionCore`, whose
+forward and backward launch the kernels or raise. `launches` and
+`bwd_launches` count kernel launches. The fused-block kernel is not ported.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ from scrabblegan_torch.kernels.build import load_library
 LOG2E = 1.4426950408889634
 KERNEL_CA, KERNEL_CG = 8, 32  # the channel counts the kernel is written for
 KEY_TILE, KEY_CHUNK = 128, 32  # csrc/attention_fwd.cu: kKt keys a tile, kKs a chunk
+BWD_TILE = 128  # csrc/attention_bwd.cu: kTile rows a shared-memory tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches since the last reset; the caller resets it
+launches = 0      # forward kernel launches since the last reset; the caller resets it
+bwd_launches = 0  # backward kernel launches (one per backward call), likewise
 
 
 def attention_reference(thetaT: torch.Tensor, phiT: torch.Tensor,
@@ -73,6 +78,74 @@ def attention_tiled_emulation(thetaT: torch.Tensor, phiT: torch.Tensor,
     return (acc * (1.0 / l)).transpose(1, 2).to(thetaT.dtype)
 
 
+def attention_backward_reference(thetaT: torch.Tensor, phiT: torch.Tensor,
+                                 gT: torch.Tensor, doutT: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward; mirrors the JAX `_xla_backward`: float32 scores and
+    softmax A, dS = A * (dA - rowsum(A * dA)), the grads cast to the input
+    dtypes. Materialises the (B, Q, K) matrices."""
+    theta, phi, g = thetaT.float(), phiT.float(), gT.float()
+    dout = doutT.float()
+    attn = torch.softmax(torch.matmul(theta.transpose(1, 2), phi), dim=-1)  # (B, Q, K)
+    d_gT = torch.matmul(dout, attn)                                     # (B, Cg, K)
+    d_attn = torch.matmul(dout.transpose(1, 2), g)                      # (B, Q, K)
+    d_scores = attn * (d_attn - (attn * d_attn).sum(-1, keepdim=True))
+    d_thetaT = torch.matmul(phi, d_scores.transpose(1, 2))              # (B, Ca, Q)
+    d_phiT = torch.matmul(theta, d_scores)                              # (B, Ca, K)
+    return (d_thetaT.to(thetaT.dtype), d_phiT.to(phiT.dtype), d_gT.to(gT.dtype))
+
+
+def attention_bwd_emulation(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
+                            doutT: torch.Tensor, tile: int = BWD_TILE
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's two-launch algorithm in plain torch, for testing
+    it on the CPU.
+
+    As csrc/attention_bwd.cu does, in float32 with scores in log2 units:
+    the query side walks K in tiles of `tile` keys, key by key, keeping the
+    running max m, sum l and t = sum e dA (pass 1, so c = t / l and
+    lse = m + log2 l), then walks K again for dtheta (pass 2); the key side
+    walks Q in tiles of `tile` queries, in order, accumulating dphi and dg
+    from A = exp2(s - lse). Vectorised over the batch and the thread's own
+    row; the walk over the other axis is the kernel's, one row at a time."""
+    b, ca, q = thetaT.shape
+    k = phiT.shape[2]
+    theta, phi, g, dout = (t.float() for t in (thetaT, phiT, gT, doutT))
+    theta2 = theta * LOG2E
+    m = torch.full((b, q), float("-inf"))
+    l = torch.zeros(b, q)
+    t = torch.zeros(b, q)
+    for k0 in range(0, k, tile):
+        for j in range(k0, min(k0 + tile, k)):
+            s = (theta2 * phi[:, :, j:j + 1]).sum(1)             # (B, Q)
+            da = (dout * g[:, :, j:j + 1]).sum(1)
+            m_new = torch.maximum(m, s)
+            scale = torch.exp2(m - m_new)                        # 0 on the first key
+            e = torch.exp2(s - m_new)
+            l = l * scale + e
+            t = t * scale + e * da
+            m = m_new
+    lse = m + torch.log2(l)
+    c = t / l
+    d_theta = torch.zeros(b, ca, q)
+    for j in range(k):  # pass 2
+        s = (theta2 * phi[:, :, j:j + 1]).sum(1)
+        da = (dout * g[:, :, j:j + 1]).sum(1)
+        ds = torch.exp2(s - lse) * (da - c)
+        d_theta += ds[:, None, :] * phi[:, :, j:j + 1]
+    d_phi = torch.zeros(b, ca, k)
+    d_g = torch.zeros(b, g.shape[1], k)
+    phi2 = phi * LOG2E
+    for i in range(q):  # key side: the query tiles are walked in order
+        s = (phi2 * theta[:, :, i:i + 1]).sum(1)                 # (B, K)
+        da = (g * dout[:, :, i:i + 1]).sum(1)
+        a = torch.exp2(s - lse[:, i:i + 1])
+        ds = a * (da - c[:, i:i + 1])
+        d_phi += ds[:, None, :] * theta[:, :, i:i + 1]
+        d_g += a[:, None, :] * dout[:, :, i:i + 1]
+    return (d_theta.to(thetaT.dtype), d_phi.to(phiT.dtype), d_g.to(gT.dtype))
+
+
 def _check_operands(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor) -> None:
     if not thetaT.dim() == phiT.dim() == gT.dim() == 3:
         raise ValueError("thetaT, phiT and gT must be 3-D (B, C, N)")
@@ -89,6 +162,16 @@ def _check_operands(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor) 
         raise ValueError("operands lie on different devices")
 
 
+def _check_kernel_operands(*named: tuple[str, torch.Tensor]) -> None:
+    for name, t in named:
+        # each batch's (C, N) block must be dense; the batch stride is free
+        if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
+            raise ValueError(f"{name}: each batch's (C, N) block must be contiguous, "
+                             f"strides {t.stride()}")
+    if named[0][1].shape[0] > 65535:
+        raise ValueError(f"batch {named[0][1].shape[0]} exceeds the kernel grid's 65535")
+
+
 def _launch_kernel(thetaT: torch.Tensor, phiT: torch.Tensor,
                    gT: torch.Tensor) -> torch.Tensor:
     global launches
@@ -97,13 +180,7 @@ def _launch_kernel(thetaT: torch.Tensor, phiT: torch.Tensor,
     if (ca, cg) != (KERNEL_CA, KERNEL_CG):
         raise ValueError(f"the CUDA kernel takes Ca={KERNEL_CA}, Cg={KERNEL_CG}; "
                          f"got Ca={ca}, Cg={cg}")
-    for name, t in (("thetaT", thetaT), ("phiT", phiT), ("gT", gT)):
-        # each batch's (C, N) block must be dense; the batch stride is free
-        if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
-            raise ValueError(f"{name}: each batch's (C, N) block must be contiguous, "
-                             f"strides {t.stride()}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel grid's 65535")
+    _check_kernel_operands(("thetaT", thetaT), ("phiT", phiT), ("gT", gT))
     lib = load_library()
     out = torch.empty((b, cg, q), dtype=thetaT.dtype, device=thetaT.device)
     err = lib.attention_fwd(
@@ -116,16 +193,66 @@ def _launch_kernel(thetaT: torch.Tensor, phiT: torch.Tensor,
     return out
 
 
+def _launch_backward(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
+                     doutT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel (two launches, one count): dthetaT, dphiT, dgT in
+    the operands' dtype, dense."""
+    global bwd_launches
+    b, ca, q = thetaT.shape
+    cg, k = gT.shape[1], gT.shape[2]
+    if (ca, cg) != (KERNEL_CA, KERNEL_CG):
+        raise ValueError(f"the CUDA kernel takes Ca={KERNEL_CA}, Cg={KERNEL_CG}; "
+                         f"got Ca={ca}, Cg={cg}")
+    if doutT.shape != (b, cg, q) or doutT.device != thetaT.device:
+        raise ValueError(f"doutT {tuple(doutT.shape)} on {doutT.device} does not match "
+                         f"the output (B, Cg, Q) = {(b, cg, q)} on {thetaT.device}")
+    doutT = doutT.to(thetaT.dtype).contiguous()
+    _check_kernel_operands(("thetaT", thetaT), ("phiT", phiT), ("gT", gT), ("doutT", doutT))
+    lib = load_library()
+    dev = thetaT.device
+    d_thetaT = torch.empty((b, ca, q), dtype=thetaT.dtype, device=dev)
+    d_phiT = torch.empty((b, ca, k), dtype=thetaT.dtype, device=dev)
+    d_gT = torch.empty((b, cg, k), dtype=thetaT.dtype, device=dev)
+    scratch = torch.empty((2, b, q), dtype=torch.float32, device=dev)  # lse, c per row
+    err = lib.attention_bwd(
+        thetaT.data_ptr(), phiT.data_ptr(), gT.data_ptr(), doutT.data_ptr(),
+        d_thetaT.data_ptr(), d_phiT.data_ptr(), d_gT.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), b, q, k,
+        thetaT.stride(0), phiT.stride(0), gT.stride(0), doutT.stride(0),
+        _DTYPE_CODE[thetaT.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention_bwd launch failed with CUDA error {err}")
+    bwd_launches += 1
+    return d_thetaT, d_phiT, d_gT
+
+
+class AttentionCore(torch.autograd.Function):
+    """The kernel path with its gradient: the forward kernel, and the
+    backward kernel on the saved (theta, phi, g), as the JAX custom VJP
+    `_attention_op` saves them in `_attention_fwd`. The launchers are looked
+    up when called, so a test can put the CPU emulations in their place."""
+
+    @staticmethod
+    def forward(ctx, thetaT, phiT, gT):
+        ctx.save_for_backward(thetaT, phiT, gT)
+        return _launch_kernel(thetaT, phiT, gT)
+
+    @staticmethod
+    def backward(ctx, doutT):
+        return _launch_backward(*ctx.saved_tensors, doutT)
+
+
 def nonlocal_attention_packed(thetaT: torch.Tensor, phiT: torch.Tensor,
                               gT: torch.Tensor) -> torch.Tensor:
     """thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) -> outT (B, Cg, Q).
 
-    On CUDA the kernel, which takes Ca=8, Cg=32 and operands whose per-batch
-    (C, N) blocks are dense (a channel slice of a wider projection is fine);
-    on the CPU the plain version."""
+    On CUDA the kernels through `AttentionCore`, which take Ca=8, Cg=32 and
+    operands whose per-batch (C, N) blocks are dense (a channel slice of a
+    wider projection is fine); on the CPU the plain version. Both carry
+    gradients."""
     _check_operands(thetaT, phiT, gT)
     if thetaT.device.type == "cuda":
-        return _launch_kernel(thetaT, phiT, gT)
+        return AttentionCore.apply(thetaT, phiT, gT)
     if thetaT.device.type == "cpu":
         return attention_reference(thetaT, phiT, gT)
     raise ValueError(f"no attention core for device {thetaT.device}")

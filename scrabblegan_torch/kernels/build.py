@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 `load_library()` compiles every `scrabblegan_torch/csrc/*.cu` with nvcc for
-sm_90a into one shared library with a plain C interface, under
+sm_90a (one nvcc per source, in parallel) and links them into one shared
+library with a plain C interface, under
 `build/scrabblegan_torch/` at the root of the checkout, named by a hash of the
 sources and the flags, so an edit rebuilds and an unchanged tree reuses the
 library. It needs no PyTorch headers, so a build takes seconds. A missing
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scrabblegan_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -39,10 +40,38 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
     lib.attention_fwd.restype = i
-    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk"):
+    lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, ll, ll, ll, ll, i, i, p]
+    lib.attention_bwd.restype = i
+    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk", "attention_bwd_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     return lib
+
+
+def _compile(nvcc: str, sources: list[Path], lib_path: Path) -> str:
+    """One nvcc per source, all started together, then one link; returns the
+    compilers' output. Raises if any step fails."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [lib_path.with_name(f"{lib_path.stem}.{src.stem}.{tag}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    outs = [proc.communicate()[0] for proc in procs]  # wait for all before any raise
+    log = []
+    for src, proc, out in zip(sources, procs, outs):
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out[-4000:]}")
+    tmp = lib_path.with_suffix(f".{tag}")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log.append(f"== link\n{link.stdout}{link.stderr}")
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    return "\n".join(log)
 
 
 @functools.cache
@@ -57,13 +86,7 @@ def load_library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libscrabblegan_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                              capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+        lib_path.with_suffix(".log").write_text(_compile(nvcc, sources, lib_path))
     return _declare(ctypes.CDLL(str(lib_path)))
 
 

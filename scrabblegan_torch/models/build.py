@@ -1,6 +1,10 @@
-"""Build the port's generator from the JAX package's Config.
+"""Build the port's networks from the JAX package's Config.
 
-Port of the generator half of scrabblegan_tpu/train/state.py build_models.
+Port of scrabblegan_tpu/train/state.py `build_models`: G, D, R and W with
+their compute dtypes (G and R in `shared.dtype`; D, W and G's style encoder
+in `shared.trunk_dtype`, which defaults to `shared.dtype`; parameters are
+float32 either way) and `shared.use_pallas_attention` choosing the attention
+core of G's B3 and D's and W's B1 on a card.
 """
 
 from __future__ import annotations
@@ -11,9 +15,25 @@ import torch
 
 from scrabblegan_tpu.config import Config, load_config
 from scrabblegan_torch import resolve_device
+from scrabblegan_torch.models.discriminator import Discriminator
 from scrabblegan_torch.models.generator import Generator
+from scrabblegan_torch.models.recognizer import Recognizer
+from scrabblegan_torch.models.style import StylePromoter
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    """The four networks."""
+
+    generator: Generator
+    discriminator: Discriminator
+    recognizer: Recognizer
+    style_promoter: StylePromoter
+
+    def items(self) -> list[tuple[str, torch.nn.Module]]:
+        return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)]
 
 
 def noise_config(path: str | None = None, overrides: dict | None = None) -> Config:
@@ -23,14 +43,13 @@ def noise_config(path: str | None = None, overrides: dict | None = None) -> Conf
     return dataclasses.replace(cfg, shared=dataclasses.replace(cfg.shared, z_source="noise"))
 
 
-def build_generator(cfg: Config, device: str | torch.device = "cpu") -> Generator:
-    """An eval-mode Generator with zero weights; load them with
-    `scrabblegan_torch.convert`. `shared.use_pallas_attention` selects the
-    attention CUDA kernel (True) or the plain core (False) on a card."""
-    if cfg.shared.dtype not in DTYPES:
-        raise ValueError(f"shared.dtype must be 'float32' or 'bfloat16', "
-                         f"got {cfg.shared.dtype!r}")
-    dev = resolve_device(device)
+def _dtype(cfg: Config, key: str, value: str) -> torch.dtype:
+    if value not in DTYPES:
+        raise ValueError(f"shared.{key} must be 'float32' or 'bfloat16', got {value!r}")
+    return DTYPES[value]
+
+
+def _generator(cfg: Config, dev: torch.device) -> Generator:
     h, _, c = cfg.io.input_dim
     return Generator(
         vocab_size=cfg.io.n_classes,
@@ -44,6 +63,41 @@ def build_generator(cfg: Config, device: str | torch.device = "cpu") -> Generato
         use_kernel=cfg.shared.use_pallas_attention,
         conv_lowering=cfg.shared.conv_lowering,
         num_pad_tokens=1 if cfg.parallel.shape_mode == "padded" else 0,
-        dtype=DTYPES[cfg.shared.dtype],
+        dtype=_dtype(cfg, "dtype", cfg.shared.dtype),
+        style_encoder_dtype=_dtype(cfg, "trunk_dtype",
+                                   cfg.shared.trunk_dtype or cfg.shared.dtype),
         device=dev,
-    ).eval()
+    )
+
+
+def build_generator(cfg: Config, device: str | torch.device = "cpu") -> Generator:
+    """An eval-mode Generator with zero weights; load them with
+    `scrabblegan_torch.convert`. `shared.use_pallas_attention` selects the
+    attention CUDA kernel (True) or the plain core (False) on a card."""
+    return _generator(cfg, resolve_device(device)).eval()
+
+
+def build_models(cfg: Config, device: str | torch.device = "cpu") -> ModelBundle:
+    """The four networks in train mode, with zero weights: load them with
+    `scrabblegan_torch.convert` or fill them with `train.state`'s
+    initialisers."""
+    if cfg.shared.my_disc:
+        raise NotImplementedError("shared.my_disc (the DCGAN discriminator) is not ported yet")
+    if cfg.shared.my_rec:
+        raise NotImplementedError("shared.my_rec (the BiLSTM recognizer) is not ported yet")
+    dev = resolve_device(device)
+    trunk = _dtype(cfg, "trunk_dtype", cfg.shared.trunk_dtype or cfg.shared.dtype)
+    c = cfg.io.input_dim[2]
+    adversary = dict(img_channels=c, blocks_with_attention=cfg.shared.d_bw_attention,
+                     use_sn=cfg.shared.kernel_reg == "spectral_norm",
+                     use_kernel=cfg.shared.use_pallas_attention, dtype=trunk, device=dev)
+    bundle = ModelBundle(
+        generator=_generator(cfg, dev),
+        discriminator=Discriminator(**adversary),
+        recognizer=Recognizer(cfg.io.n_classes + 1, img_channels=c,
+                              dtype=_dtype(cfg, "dtype", cfg.shared.dtype), device=dev),
+        style_promoter=StylePromoter(**adversary),
+    )
+    for _, module in bundle.items():
+        module.train()
+    return bundle

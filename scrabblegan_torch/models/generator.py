@@ -1,13 +1,12 @@
-"""The ScrabbleGAN generator with the noise z source, NCHW, eval mode.
+"""The ScrabbleGAN generator with both z sources, and its style encoder, NCHW.
 
-Port of scrabblegan_tpu/models/generator.py (Generator, z_source='noise'):
-z (B, 128) is split 4 x 32; z0 contracts the filter bank into one 4x4x512
-seed per character, laid side by side along the width; three CBN up-blocks
-conditioned on z1..z3 (channels 256/128/64, strides (2,2), (2,2), (2,1));
-non-local attention after B3; final BN, relu, 3x3 SN conv, tanh. Labels
-(B, L) give images (B, C, 32, 16L) in [-1, 1].
-
-The style z source needs ResNetBlockDown and is not ported yet.
+Port of scrabblegan_tpu/models/generator.py (StyleEncoder, Generator):
+z (B, 128), drawn ('noise') or encoded from a style image ('style'), is split
+4 x 32; z0 contracts the filter bank into one 4x4x512 seed per character,
+laid side by side along the width; three CBN up-blocks conditioned on z1..z3
+(channels 256/128/64, strides (2,2), (2,2), (2,1)); non-local attention after
+B3; final BN, relu, 3x3 SN conv, tanh. Labels (B, L) give images
+(B, C, 32, 16L) in [-1, 1]. Train mode (`.train()`) is the layers' own.
 """
 
 from __future__ import annotations
@@ -16,17 +15,56 @@ import torch
 from torch import nn
 
 from scrabblegan_torch.ops.attention import NonLocalBlock
-from scrabblegan_torch.ops.blocks import BatchNorm, ResNetBlockUp
+from scrabblegan_torch.ops.blocks import BatchNorm, ResNetBlockDown, ResNetBlockUp
 from scrabblegan_torch.ops.embedding import FilterBank
-from scrabblegan_torch.ops.layers import SNConv
+from scrabblegan_torch.ops.layers import SNConv, SNDense
 
 GEN_IN_CHANNELS = (512, 256, 128)  # scrabblegan_tpu gen_channels(32)
 GEN_OUT_CHANNELS = (256, 128, 64)
 
 
+def disc_channels(colors: int = 1, resolution: int = 32) -> tuple[list[int], list[int]]:
+    """Down-block channels (in, out) of D, W and the style encoder;
+    scrabblegan_tpu/models/discriminator.py `disc_channels`."""
+    if colors not in (1, 3):
+        raise ValueError(f"Unsupported color channels: {colors}")
+    if resolution != 32:
+        raise ValueError(f"Unsupported resolution: {resolution}")
+    out_channels = [64 * m for m in (1, 8, 16, 16)]
+    return [colors] + out_channels[:-1], out_channels
+
+
+class StyleEncoder(nn.Module):
+    """Style image (B, C, 32, W) -> 128-d z (B, 128), in its own compute
+    dtype: four ResNetBlockDown (64/512/1024/1024), attention after the first
+    on the plain core (JAX builds this block without `use_pallas`), relu,
+    global average pool accumulated in float32, SN-Dense 128."""
+
+    def __init__(self, img_channels: int = 1, latent_dim: int = 128, use_sn: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        ins, outs = disc_channels(img_channels)
+        kw = dict(use_sn=use_sn, dtype=dtype, device=device)
+        for idx, (cin, cout) in enumerate(zip(ins, outs)):
+            self.add_module(f"block{idx + 1}", ResNetBlockDown(
+                cin, cout, is_last_block=idx == len(outs) - 1, **kw))
+        self.attn = NonLocalBlock(outs[0], use_kernel=False, **kw)
+        self.proj = SNDense(outs[-1], latent_dim, **kw)
+
+    def forward(self, style_imgs: torch.Tensor) -> torch.Tensor:
+        net = self.attn(self.block1(style_imgs.to(self.dtype)))
+        for name in ("block2", "block3", "block4"):
+            net = getattr(self, name)(net)
+        net = torch.relu(net).float().mean(dim=(2, 3))
+        return self.proj(net)
+
+
 class Generator(nn.Module):
     """`num_pad_tokens=1` adds the filter bank's PAD row ('padded' shape mode).
-    `use_kernel` picks the attention core (see NonLocalBlock)."""
+    `use_kernel` picks the attention core of B3 (see NonLocalBlock).
+    `style_encoder_dtype` is the style encoder's compute dtype (the trunk
+    dtype; default `dtype`); its z is cast back to `dtype`."""
 
     def __init__(self, vocab_size: int, latent_dim: int = 128,
                  embed_y: tuple[int, int] = (32, 8192),
@@ -34,13 +72,9 @@ class Generator(nn.Module):
                  img_channels: int = 1, img_height: int = 32, use_sn: bool = True,
                  use_kernel: bool = True, conv_lowering: str = "dilated",
                  num_pad_tokens: int = 0, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 style_encoder_dtype: torch.dtype | None = None, device=None):
         super().__init__()
-        if z_source == "style":
-            raise NotImplementedError(
-                "z_source='style' needs the style encoder (ResNetBlockDown), "
-                "which is not ported yet")
-        if z_source != "noise":
+        if z_source not in ("noise", "style"):
             raise ValueError(f"Unknown z_source: {z_source!r}")
         if img_height != 32:
             raise ValueError(f"Unsupported resolution: {img_height}")
@@ -54,6 +88,11 @@ class Generator(nn.Module):
         if embed_y[1] != self.seed_ch * self.seed_hw ** 2:
             raise ValueError(f"embed_y[1] must be {self.seed_ch * self.seed_hw ** 2}")
         self.dtype = dtype
+        self.z_source = z_source
+        if z_source == "style":
+            self.style_encoder = StyleEncoder(
+                img_channels, latent_dim, use_sn=use_sn,
+                dtype=style_encoder_dtype or dtype, device=device)
         self.filter_bank = FilterBank(vocab_size + num_pad_tokens, embed_y, dtype, device)
         self.attention_after = []
         for idx, (cin, cout) in enumerate(zip(GEN_IN_CHANNELS, GEN_OUT_CHANNELS)):
@@ -70,12 +109,20 @@ class Generator(nn.Module):
         self.to_image = SNConv(GEN_OUT_CHANNELS[-1], img_channels, (3, 3),
                                use_sn=use_sn, dtype=dtype, device=device)
 
-    def forward(self, labels: torch.Tensor, z: torch.Tensor,
-                lengths: torch.Tensor | None = None) -> torch.Tensor:
-        """labels (B, L) char ids, z (B, latent_dim) -> (B, C, 32, 16L).
+    def forward(self, labels: torch.Tensor, z: torch.Tensor | None = None,
+                lengths: torch.Tensor | None = None,
+                style_imgs: torch.Tensor | None = None) -> torch.Tensor:
+        """labels (B, L) char ids and z (B, latent_dim), or style_imgs
+        (B, C, 32, W) with z_source='style' -> (B, C, 32, 16L).
 
         lengths: optional (B,) true word lengths ('padded' mode); columns at or
         past 16*len are set to white (+1)."""
+        if self.z_source == "style":
+            if style_imgs is None:
+                raise ValueError("z_source='style' requires style_imgs")
+            z = self.style_encoder(style_imgs)
+        elif z is None:
+            raise ValueError("z_source='noise' requires z")
         z = z.to(self.dtype)
         z0, *z_blocks = torch.split(z, self.chunk, dim=1)
         net = self.filter_bank.contract(labels, z0)  # (B, L, 8192)

@@ -1,8 +1,10 @@
-"""SAGAN non-local (self-attention) block, NCHW, eval mode.
+"""SAGAN non-local (self-attention) block, NCHW.
 
 Port of scrabblegan_tpu/ops/attention.py (NonLocalBlock): 1x1 SN convs theta
 (C/8), phi (C/8) and g (C/2); 2x2 max-pool of phi and g; the softmax core;
-the out 1x1 SN conv; `sigma * out + x`.
+the out 1x1 SN conv; `sigma * out + x`. Train mode is the SN layers' (their
+new u and sigma go to the open stat record); the core carries gradients on
+both of its paths.
 
 The three projections run as one 1x1 conv on their concatenated weights (x is
 read once, as in the JAX 'nhwc1' dataflow). An NCHW activation (B, C, H, W)
@@ -25,8 +27,10 @@ DATAFLOWS = ("nhwc", "nhwc1", "packed")
 
 
 class NonLocalBlock(nn.Module):
-    """`use_kernel` selects the attention core: the CUDA kernel for a CUDA
-    tensor (the plain version for a CPU one), or always the plain version."""
+    """`use_kernel` selects the attention core: the CUDA kernels for a CUDA
+    tensor (the plain version for a CPU one), or always the plain version.
+    JAX's G B3 and D/W B1 blocks take `use_pallas_attention`; its style
+    encoder's block is built without it and takes the plain core."""
 
     def __init__(self, features: int, use_sn: bool = True, use_kernel: bool = True,
                  dataflow: str = "nhwc1", dtype: torch.dtype = torch.float32,

@@ -1,12 +1,17 @@
-"""BigGAN-style up block and conditional batch norm (eval mode), NCHW.
+"""BigGAN-style ResNet blocks, batch norm and conditional batch norm, NCHW.
 
-Port of scrabblegan_tpu/ops/blocks.py (ConditionalBatchNorm, ResNetBlockUp).
-ResNetBlockDown, which only the discriminators and the style encoder use, is
-not ported yet.
+Port of scrabblegan_tpu/ops/blocks.py (ConditionalBatchNorm, ResNetBlockUp,
+ResNetBlockDown) and of flax `nn.BatchNorm` as the repo uses it (defaults:
+momentum 0.99, eps 1e-5).
 
-Batch norm follows flax `nn.BatchNorm` in eval mode: eps 1e-5, the running
-`mean`/`var` from `batch_stats`, computed in float32 and cast to the compute
-dtype.
+- Eval mode normalises by the running `mean`/`var` from `batch_stats`, in
+  float32, cast to the compute dtype.
+- Train mode normalises by the batch statistics over (N, H, W), in float32,
+  with flax's fast variance max(0, E[x^2] - E[x]^2), and proposes the running
+  update ra = 0.99 ra + 0.01 stat with the biased variance to the open stat
+  record (ops/layers.py `record_stats`); nothing is written during the
+  forward. `F.batch_norm(training=True)` is not used: it updates the running
+  variance with the unbiased variance, in place, on every call.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scrabblegan_torch.ops.layers import FlaxLeaf, SNConv, SNConvTranspose, SNDense
+from scrabblegan_torch.ops.layers import (FlaxLeaf, SNConv, SNConvTranspose, SNDense,
+                                          propose_stats)
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99
 
 
 def batch_norm_eval(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
@@ -28,36 +35,70 @@ def batch_norm_eval(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     return F.batch_norm(x, mean, var, scale, bias, training=False, eps=BN_EPS)
 
 
-class BatchNorm(nn.Module):
-    """flax nn.BatchNorm (scale and bias on) in eval mode."""
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor | None = None,
+                     bias: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """flax BatchNorm's train-mode forward over channel axis 1: returns (y in
+    x's dtype, batch mean, biased batch variance), the statistics in float32
+    and differentiable, as flax's `_compute_stats` and `_normalize` do."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+    mul = torch.rsqrt(var + BN_EPS)
+    if scale is not None:
+        mul = mul * scale
+    y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+    if bias is not None:
+        y = y + bias[None, :, None, None]
+    return y.to(x.dtype), mean, var
+
+
+class _BatchNormStats(nn.Module):
+    """The running statistics of a batch norm and its normalisation."""
 
     def __init__(self, features: int, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
+    def normalize(self, x: torch.Tensor, scale: torch.Tensor | None = None,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training:
+            return batch_norm_eval(x, self.running_mean, self.running_var, scale, bias)
+        y, mean, var = batch_norm_train(x, scale, bias)
+        with torch.no_grad():
+            propose_stats(
+                self,
+                running_mean=BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean,
+                running_var=BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        return y
+
+
+class BatchNorm(_BatchNormStats):
+    """flax nn.BatchNorm with scale and bias."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__(features, device)
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
     def flax_leaves(self) -> list[FlaxLeaf]:
-        return [FlaxLeaf("params", ("scale",), "weight", "same"),
+        return [FlaxLeaf("params", ("scale",), "weight", "same", "ones"),
                 FlaxLeaf("params", ("bias",), "bias", "same"),
                 FlaxLeaf("batch_stats", ("mean",), "running_mean", "same"),
-                FlaxLeaf("batch_stats", ("var",), "running_var", "same")]
+                FlaxLeaf("batch_stats", ("var",), "running_var", "same", "ones")]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm_eval(x, self.running_mean, self.running_var,
-                               self.weight, self.bias)
+        return self.normalize(x, self.weight, self.bias)
 
 
-class ConditionalBatchNorm(nn.Module):
+class ConditionalBatchNorm(_BatchNormStats):
     """Non-affine batch norm, then gamma and beta from SN-Dense layers on the
     conditioning vector: h * gamma + beta, per channel."""
 
     def __init__(self, features: int, cond_features: int, use_sn: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
-        super().__init__()
-        self.register_buffer("running_mean", torch.zeros(features, device=device))
-        self.register_buffer("running_var", torch.ones(features, device=device))
+        super().__init__(features, device)
         self.gamma = SNDense(cond_features, features, use_sn=use_sn, dtype=dtype,
                              device=device)
         self.beta = SNDense(cond_features, features, use_sn=use_sn, dtype=dtype,
@@ -65,10 +106,11 @@ class ConditionalBatchNorm(nn.Module):
 
     def flax_leaves(self) -> list[FlaxLeaf]:
         return [FlaxLeaf("batch_stats", ("BatchNorm_0", "mean"), "running_mean", "same"),
-                FlaxLeaf("batch_stats", ("BatchNorm_0", "var"), "running_var", "same")]
+                FlaxLeaf("batch_stats", ("BatchNorm_0", "var"), "running_var", "same",
+                         "ones")]
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        h = batch_norm_eval(x, self.running_mean, self.running_var)
+        h = self.normalize(x)
         gamma = self.gamma(cond)[:, :, None, None]
         beta = self.beta(cond)[:, :, None, None]
         return h * gamma + beta
@@ -100,3 +142,35 @@ class ResNetBlockUp(nn.Module):
         h = torch.relu(self.cbn2(h, cond))
         h = self.conv(h)
         return h + self.skip(x)
+
+
+class ResNetBlockDown(nn.Module):
+    """relu -> 3x3 SN conv -> relu -> 3x3 SN conv -> 2x2 average pool, plus a
+    1x1 SN conv skip with the same pool; no pool on the last block. No
+    normalisation, like BigGAN's D blocks.
+
+    flax's 'SAME' 2x2/2 average pool equals `F.avg_pool2d(2)` on even heights
+    and widths, which is every shape the networks give it; an odd one
+    raises rather than silently pooling differently."""
+
+    def __init__(self, in_features: int, features: int, is_last_block: bool = False,
+                 use_sn: bool = True, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kw = dict(use_sn=use_sn, dtype=dtype, device=device)
+        self.is_last_block = is_last_block
+        self.conv1 = SNConv(in_features, features, (3, 3), **kw)
+        self.conv2 = SNConv(features, features, (3, 3), **kw)
+        self.skip = SNConv(in_features, features, (1, 1), **kw)
+
+    def _pool(self, h: torch.Tensor) -> torch.Tensor:
+        if self.is_last_block:
+            return h
+        if h.shape[2] % 2 or h.shape[3] % 2:
+            raise ValueError(f"ResNetBlockDown pools even heights and widths only, "
+                             f"got {tuple(h.shape[2:])}")
+        return F.avg_pool2d(h, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(torch.relu(x))
+        h = self.conv2(torch.relu(h))
+        return self._pool(h) + self._pool(self.skip(x))

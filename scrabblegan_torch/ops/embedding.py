@@ -23,7 +23,7 @@ class FilterBank(nn.Module):
         self.bank = nn.Parameter(torch.zeros(vocab_size, *filter_dim, device=device))
 
     def flax_leaves(self) -> list[FlaxLeaf]:
-        return [FlaxLeaf("params", ("filter_bank",), "bank", "same")]
+        return [FlaxLeaf("params", ("filter_bank",), "bank", "same", "glorot_uniform")]
 
     def contract(self, ids: torch.Tensor, z0: torch.Tensor) -> torch.Tensor:
         """(B, L) ids, (B, k) z0 -> (B, L, d) in the compute dtype.

@@ -1,16 +1,29 @@
-"""Spectrally normalized conv, transposed conv and dense layers (eval mode).
+"""Spectrally normalized conv, transposed conv and dense layers, the plain
+conv and dense layers of the recognizer, and the train-mode statistics record.
 
-Port of scrabblegan_tpu/ops/layers.py (SNConv, SNConvTranspose, SNDense).
-Parameters are float32, as in flax; each call casts the normalized weight and
-the bias to the layer's compute dtype, as flax's `dtype=` does.
+Port of scrabblegan_tpu/ops/layers.py (SNConv, SNConvTranspose, SNDense) and
+of the flax `nn.Conv` / `nn.Dense` the recognizer uses. Parameters are
+float32, as in flax; each call casts the normalized weight and the bias to the
+layer's compute dtype, as flax's `dtype=` does.
 
-Spectral norm follows flax `nn.SpectralNorm`, not
+Spectral norm follows flax `nn.SpectralNorm` (flax 0.12.3), not
 `torch.nn.utils.parametrizations.spectral_norm`, which differs in the matrix
 shape, the epsilon and when it iterates:
 - the kernel is viewed as a (-1, out) matrix and u is (1, out);
 - every call runs one power-iteration step from the stored u, eval included,
   in float32 with eps 1e-12, and divides by the sigma of that step; the stored
-  `sigma` leaf is only ever written by flax, never read.
+  `sigma` leaf is written in train mode and never read;
+- u and v are constants for autograd (flax's `stop_gradient`), so the weight
+  gradient flows through W and through sigma = v W u^T by W only.
+
+Train-mode statistics (spectral norm's u and sigma here, batch norm's running
+mean and variance in ops/blocks.py) are never written during a forward. A
+layer in train mode proposes its new values to the record that
+`record_stats()` opened, if any, and `commit_stats` writes a record into the
+buffers. So every pass of a train step reads the statistics from the start of
+the step, and the step commits only the passes whose statistics JAX keeps, as
+`apply(..., mutable=['batch_stats'])` returns them (scrabblegan_tpu/train/
+step.py). A pass outside any record discards its statistics.
 
 The torch layouts are OIHW for a conv, (I, O, kh, kw) for a transposed conv
 and (out, in) for a dense kernel. The transposed conv's kernel is stored
@@ -20,6 +33,9 @@ flax leaves it holds (`flax_leaves`), which `scrabblegan_torch.convert` maps.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from collections.abc import Iterator
 from typing import NamedTuple, Sequence
 
 import torch
@@ -33,14 +49,48 @@ class FlaxLeaf(NamedTuple):
     """One leaf of a flax variable tree that a port module holds.
 
     `path` is relative to the module's flax scope, whose names the port's module
-    names mirror. `attr` is the torch parameter or buffer it loads into, or None
-    for a float32 scalar the port does not read (spectral norm's stored sigma).
+    names mirror. `attr` is the torch parameter or buffer it loads into.
     `layout` names the array transform in `scrabblegan_torch.convert`."""
 
     collection: str  # 'params' | 'batch_stats'
     path: tuple[str, ...]
-    attr: str | None
+    attr: str
     layout: str  # 'same' | 'conv' | 'conv_transpose' | 'dense'
+    # flax's initializer of the leaf (scrabblegan_torch.train.state.init_fill):
+    # 'orthogonal' | 'lecun_normal' | 'glorot_uniform' | 'normal' | 'zeros' | 'ones'
+    init: str = "zeros"
+
+
+StatRecord = dict[tuple[nn.Module, str], torch.Tensor]
+_RECORD: contextvars.ContextVar[StatRecord | None] = contextvars.ContextVar(
+    "scrabblegan_torch_stat_record", default=None)
+
+
+@contextlib.contextmanager
+def record_stats() -> Iterator[StatRecord]:
+    """Collect the statistics the train-mode layers compute inside the block:
+    {(module, buffer name): new value}, detached. Nothing is written."""
+    record: StatRecord = {}
+    token = _RECORD.set(record)
+    try:
+        yield record
+    finally:
+        _RECORD.reset(token)
+
+
+def propose_stats(module: nn.Module, **values: torch.Tensor) -> None:
+    """Offer a train-mode layer's new statistics to the open record, if any."""
+    record = _RECORD.get()
+    if record is not None:
+        for name, value in values.items():
+            record[(module, name)] = value.detach()
+
+
+@torch.no_grad()
+def commit_stats(record: StatRecord) -> None:
+    """Write a record's statistics into the modules' buffers."""
+    for (module, name), value in record.items():
+        getattr(module, name).copy_(value)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = SN_EPS) -> torch.Tensor:
@@ -49,11 +99,13 @@ def l2_normalize(x: torch.Tensor, eps: float = SN_EPS) -> torch.Tensor:
 
 
 class _SNLayer(nn.Module):
-    """Weight, optional bias and the spectral-norm u vector of one layer."""
+    """Weight, optional bias and the spectral-norm u vector and sigma of one
+    layer."""
 
-    flax_inner = ""  # the flax submodule wrapped by SpectralNorm
+    flax_inner = ""  # the flax submodule wrapped by SpectralNorm; '' for a plain layer
     layout = ""
     out_axis = 0  # the torch weight's output-channel axis
+    kernel_init = "orthogonal"  # scrabblegan_tpu.ops.layers.orthogonal_init
 
     def __init__(self, weight_shape: Sequence[int], features: int, use_bias: bool,
                  use_sn: bool, dtype: torch.dtype, device):
@@ -65,44 +117,51 @@ class _SNLayer(nn.Module):
                      if use_bias else None)
         if use_sn:
             self.register_buffer("u", torch.zeros(1, features, device=device))
+            self.register_buffer("sigma", torch.ones((), device=device))
 
     def normalized_weight(self) -> torch.Tensor:
         """W / sigma(W) in the compute dtype.
 
-        In eval mode W and u are constants, so this is a constant too. It is
-        recomputed on each call, like flax does, rather than cached at load
-        time: three small matrix-vector products next to the layer's own work,
-        and nothing to invalidate when weights are reloaded."""
+        One power-iteration step from the stored u, u and v held constant; in
+        train mode the new u and sigma go to the open stat record. It is
+        recomputed on each call, like flax does, rather than cached: three
+        small matrix-vector products next to the layer's own work."""
         w = self.weight.float()
         if not self.use_sn:
             return w.to(self.dtype)
         # rows in torch order, a permutation of flax's (-1, out) rows: the
         # power iteration and sigma do not depend on the row order
         mat = w.movedim(self.out_axis, -1).reshape(-1, w.shape[self.out_axis])
-        v = l2_normalize(self.u.float() @ mat.T)
-        u = l2_normalize(v @ mat)
+        with torch.no_grad():
+            v = l2_normalize(self.u.float() @ mat.T)
+            u = l2_normalize(v @ mat)
         sigma = ((v @ mat) @ u.T)[0, 0]
-        sigma = torch.where(sigma != 0, sigma, torch.ones_like(sigma))
-        return (w / sigma).to(self.dtype)
+        if self.training:
+            propose_stats(self, u=u, sigma=sigma)
+        return (w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))).to(self.dtype)
 
     def cast_bias(self) -> torch.Tensor | None:
         return None if self.bias is None else self.bias.to(self.dtype)
 
     def flax_leaves(self) -> list[FlaxLeaf]:
-        leaves = [FlaxLeaf("params", (self.flax_inner, "kernel"), "weight", self.layout)]
+        scope = (self.flax_inner,) if self.flax_inner else ()
+        leaves = [FlaxLeaf("params", (*scope, "kernel"), "weight", self.layout,
+                           self.kernel_init)]
         if self.bias is not None:
-            leaves.append(FlaxLeaf("params", (self.flax_inner, "bias"), "bias", "same"))
+            leaves.append(FlaxLeaf("params", (*scope, "bias"), "bias", "same"))
         if self.use_sn:
             stem = f"{self.flax_inner}/kernel"
             leaves += [
-                FlaxLeaf("batch_stats", ("SpectralNorm_0", f"{stem}/u"), "u", "same"),
-                FlaxLeaf("batch_stats", ("SpectralNorm_0", f"{stem}/sigma"), None, "same"),
+                FlaxLeaf("batch_stats", ("SpectralNorm_0", f"{stem}/u"), "u", "same", "normal"),
+                FlaxLeaf("batch_stats", ("SpectralNorm_0", f"{stem}/sigma"), "sigma", "same",
+                         "ones"),
             ]
         return leaves
 
 
 class SNConv(_SNLayer):
-    """Stride-1 'SAME' conv, the form every caller of the JAX SNConv uses."""
+    """Stride-1 conv, 'SAME' as every caller of the JAX SNConv uses it, or
+    'VALID'."""
 
     flax_inner = "Conv_0"
     layout = "conv"
@@ -111,12 +170,30 @@ class SNConv(_SNLayer):
     def __init__(self, in_features: int, features: int,
                  kernel_size: tuple[int, int] = (3, 3), use_bias: bool = True,
                  use_sn: bool = True, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, padding: str = "same"):
+        if padding not in ("same", "valid"):
+            raise ValueError(f"padding must be 'same' or 'valid', got {padding!r}")
         super().__init__((features, in_features, *kernel_size), features,
                          use_bias, use_sn, dtype, device)
+        self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.normalized_weight(), self.cast_bias(), padding="same")
+        return F.conv2d(x.to(self.dtype), self.normalized_weight(), self.cast_bias(),
+                        padding=self.padding)
+
+
+class Conv(SNConv):
+    """flax `nn.Conv` as the recognizer uses it: stride 1, bias, no spectral
+    norm, lecun-normal kernel."""
+
+    flax_inner = ""
+    kernel_init = "lecun_normal"
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int] = (3, 3), padding: str = "same",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, features, kernel_size, use_bias=True, use_sn=False,
+                         dtype=dtype, device=device, padding=padding)
 
 
 def same_transpose_padding(k: int, s: int) -> tuple[int, int]:
@@ -163,7 +240,7 @@ class SNConvTranspose(_SNLayer):
         self.output_padding = tuple(o for _, o in pads)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x, self.normalized_weight(), self.cast_bias(),
+        y = F.conv_transpose2d(x.to(self.dtype), self.normalized_weight(), self.cast_bias(),
                                stride=self.strides, padding=self.padding,
                                output_padding=self.output_padding)
         sh, sw = self.strides
@@ -182,4 +259,17 @@ class SNDense(_SNLayer):
                          dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.normalized_weight(), self.cast_bias())
+        return F.linear(x.to(self.dtype), self.normalized_weight(), self.cast_bias())
+
+
+class Dense(SNDense):
+    """flax `nn.Dense` as the recognizer uses it: bias, no spectral norm,
+    lecun-normal kernel."""
+
+    flax_inner = ""
+    kernel_init = "lecun_normal"
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, features, use_bias=True, use_sn=False, dtype=dtype,
+                         device=device)

@@ -26,6 +26,10 @@ from scrabblegan_torch.convert import fake_fill, flatten, load_flax
 from scrabblegan_torch.kernels import attention, build
 from scrabblegan_torch.ops.attention import NonLocalBlock
 
+# One intra-op thread: the suite runs in parallel worker processes, and
+# torch's OpenMP pool in each would oversubscribe the cores many times over.
+torch.set_num_threads(1)
+
 TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
 
 

@@ -25,7 +25,11 @@ import torch
 from scrabblegan_tpu.config import load_config
 from scrabblegan_tpu.models.generator import Generator as JaxGenerator
 from scrabblegan_torch import convert, infer
-from scrabblegan_torch.models.build import build_generator, noise_config
+from scrabblegan_torch.models.build import build_generator, build_models, noise_config
+
+# One intra-op thread: the suite runs in parallel worker processes, and
+# torch's OpenMP pool in each would oversubscribe the cores many times over.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -122,8 +126,11 @@ def test_conversion_rejects_bad_trees_and_skips_the_style_encoder():
 
 
 def test_config_choices():
-    with pytest.raises(NotImplementedError):
-        build_generator(cfg_for(**{"shared.z_source": "style"}))
+    style = build_generator(cfg_for(**{"shared.z_source": "style"}), "meta")
+    assert not style.style_encoder.attn.use_kernel  # JAX builds it without use_pallas
+    for unported in ("shared.my_rec", "shared.my_disc"):
+        with pytest.raises(NotImplementedError):
+            build_models(cfg_for(**{unported: True}), "meta")
     with pytest.raises(ValueError):
         build_generator(cfg_for(**{"shared.dtype": "float16"}))
     # 'subpixel' is a TPU lowering of the same transposed conv
@@ -185,6 +192,9 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import scrabblegan_torch.models.generator, scrabblegan_torch.convert, scrabblegan_torch.infer
+import scrabblegan_torch.models.discriminator, scrabblegan_torch.models.recognizer
+import scrabblegan_torch.models.style, scrabblegan_torch.models.build
+import scrabblegan_torch.train, scrabblegan_torch.train.step, scrabblegan_torch.train.cli
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not loaded, loaded
 """

@@ -1,7 +1,7 @@
 """Parity of the PyTorch port's layers and blocks with the JAX package (CPU).
 
 The same numpy-seeded inputs and weights go through each flax module in eval
-mode and through its port. Weights come from `jax.eval_shape(init)` filled by
+mode and through its port in eval mode (train mode: test_torch_train_layers.py). Weights come from `jax.eval_shape(init)` filled by
 `scrabblegan_torch.convert.fake_fill` (random spectral-norm u, non-trivial BN
 statistics), so a wrong conversion or a stored-sigma shortcut shows.
 Activations are NHWC on the JAX side and NCHW in the port."""
@@ -17,6 +17,10 @@ from scrabblegan_tpu.ops import embedding as jembedding
 from scrabblegan_tpu.ops import layers as jlayers
 from scrabblegan_torch.convert import fake_fill, flatten, load_flax
 from scrabblegan_torch.ops import blocks, embedding, layers
+
+# One intra-op thread: the suite runs in parallel worker processes, and
+# torch's OpenMP pool in each would oversubscribe the cores many times over.
+torch.set_num_threads(1)
 
 TOL = 1e-5  # float32 both sides; sums of at most a few thousand products
 
@@ -83,7 +87,7 @@ def test_conditional_batch_norm():
     jm = jblocks.ConditionalBatchNorm()
     v = flax_variables(jm, x, cond, train=False)
     ref = np.asarray(jm.apply(v, x, cond, train=False))
-    port = load_flax(blocks.ConditionalBatchNorm(16, 32), v)
+    port = load_flax(blocks.ConditionalBatchNorm(16, 32), v).eval()
     got = nhwc(port(nchw(x), torch.from_numpy(cond)))
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
@@ -94,7 +98,7 @@ def test_resnet_block_up(is_last):
     jm = jblocks.ResNetBlockUp(8, is_last_block=is_last)
     v = flax_variables(jm, x, cond, train=False)
     ref = np.asarray(jm.apply(v, x, cond, train=False))
-    port = load_flax(blocks.ResNetBlockUp(16, 8, 32, is_last_block=is_last), v)
+    port = load_flax(blocks.ResNetBlockUp(16, 8, 32, is_last_block=is_last), v).eval()
     got = nhwc(port(nchw(x), torch.from_numpy(cond)))
     assert got.shape == (2, 8, 6 if is_last else 12, 8)
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
