@@ -41,17 +41,56 @@ each or more:
    trace of 5 steps (device busy share, kernel launches a step, top kernel
    classes), each printed with the card's name and power limit.
 
-Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failure raises and the exit code is
-non-zero; without a card the script exits non-zero before any result.
+The 'fused' attention dataflow (the whole non-local block as one kernel,
+csrc/fused_block_fwd.cu) adds four phases, each run after the phase of the
+same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10):
+
+11. the fused kernel vs its plain version (the composition on the plain
+   core) at G's B3 and D's and W's B1 shapes for L = 1, 5, 10 and a ragged
+   N = 300, K = 75, batch 4, float32 within 5e-4 and bfloat16 within 1e-1
+   (the JAX fused-kernel test's tolerances); the autograd Function's grads
+   vs autograd through the plain composition in the same dtype, within 2e-4
+   (float32) and 2e-2 (bfloat16) of each gradient's largest entry;
+12. G at batch 1024, bf16, len 5 and 10 under 'fused': one fused launch and
+   no core launch a forward, finite images, agreement with the 'nhwc1'
+   images of phase 4 (G_TOL_PLAIN); then images/s of both dataflows in
+   turns nhwc1, fused, fused, nhwc1, and the fused kernel's and the plain
+   version's ms;
+13. the train step under 'fused' for both configurations of phase 8, 10
+   steps each: 7 fused launches a step, and in the backward 7 core forwards
+   (the recompute) and 7 core backwards; finite metrics; step 1 against the
+   'nhwc1' step at phase 8's tolerances (the two balanced metrics at the
+   card-vs-CPU check's);
+14. the train CLI with --workdir under 'fused' (3 steps, then 2 more that
+   resume at step 3; checkpoints and the EMA export with standing stats) and
+   the inference CLI serving the export with --model-dir.
+
+The dataflow is set through $SCRABBLEGAN_ATTN_DATAFLOW, which the blocks
+read at each call; it is 'nhwc1' outside the 'fused' phases. Each launch
+count is set to 0 just before a path runs and read just after it.
+
+Then one JSON line {"kernels": [...]}: per kernel its launches on the paths,
+its largest error against the plain version, its ms, the plain version's ms,
+the least time the card could take for the same work (bound_ms: the larger
+of the bytes the call must move over 3.35 TB/s and its operations over 989
+TFLOP/s in bf16 or 67 TFLOP/s in float32, the H100 SXM's published peaks)
+and, where one PyTorch call computes the same function, that call's ms
+(F.scaled_dot_product_attention with scale 1, timed as a yardstick only).
+Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
+failure raises and the exit code is non-zero; without a card the script
+exits non-zero before any result.
 
 Usage: python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +101,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
+LOG = ROOT / "chiprun_out" / "chip_smoke.log"
 BATCH = 1024
 LENGTHS = (5, 10)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -70,7 +110,13 @@ G_TOL_CPU = 1e-3    # f32 images, card vs CPU; cuDNN may pick Winograd or FFT co
 
 
 def say(phase: str, **fields) -> None:
-    print(f"[{phase}] " + json.dumps(fields), flush=True)
+    """One result line, on stdout and appended to chiprun_out/chip_smoke.log,
+    which keeps every phase where only the end of stdout is kept."""
+    line = f"[{phase}] " + json.dumps(fields)
+    print(line, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def card_line() -> str:
@@ -485,6 +531,283 @@ def profile_steps(core: str, state, step, batches: list, card: str) -> None:
         top_kernels_ms_per_step=[(k[:90], t / n / 1e3, c / n) for k, (t, c) in top])
 
 
+# ---- phases 11-14: the 'fused' attention dataflow ------------------------------
+
+FUSED_TOL = {torch.float32: 5e-4, torch.bfloat16: 1e-1}  # tests/test_kernels.py:109-118
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+@contextlib.contextmanager
+def dataflow(name: str):
+    """The attention dataflow every NonLocalBlock resolves at its next call."""
+    before = os.environ.get("SCRABBLEGAN_ATTN_DATAFLOW")
+    os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = name
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["SCRABBLEGAN_ATTN_DATAFLOW"]
+        else:
+            os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = before
+
+
+def reset_counts(*modules) -> None:
+    for m in modules:
+        for name in ("launches", "bwd_launches"):
+            if hasattr(m, name):
+                setattr(m, name, 0)
+
+
+def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
+    """(ms, 'bytes' or 'operations'): the larger of the two least times."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def core_bound(batch: int, q: int, k: int, dtype, backward: bool) -> tuple[float, str]:
+    """The attention core: theta, phi, g (and dout) read, out (or the three
+    grads) written; 2 (Ca + Cg) flops a (q, k) pair forward, 2 (3 Ca + 2 Cg)
+    backward (scores, dA, dtheta, dphi, dg)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    elems = 8 * q + 8 * k + 32 * k + 32 * q
+    if backward:
+        elems += 8 * q + 8 * k + 32 * k
+    per_pair = 2 * (3 * 8 + 2 * 32) if backward else 2 * (8 + 32)
+    return bound(size * batch * elems, batch * q * k * per_pair, dtype)
+
+
+def fused_bound(batch: int, n: int, k: int, dtype) -> tuple[float, str]:
+    """The fused block: x, phi, g and the two weights read, out written; the
+    core's 80 flops a (q, k) pair and 2 (64 x 8 + 32 x 64) a query."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    elems = batch * (2 * 64 * n + 8 * k + 32 * k) + 64 * 8 + 32 * 64
+    flops = batch * n * k * 2 * (8 + 32) + batch * n * 2 * (64 * 8 + 32 * 64)
+    return bound(size * elems, flops, dtype)
+
+
+def fused_operands(batch: int, n: int, k: int, dtype, gen: torch.Generator):
+    """x (B, 64, N), w_theta (64, 8), phiT, gT and sigma-folded w_out (32, 64),
+    the scales of the JAX fused-kernel test."""
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+    return [rnd(batch, 64, n), rnd(64, 8, scale=0.2), rnd(batch, 8, k), rnd(batch, 32, k),
+            rnd(32, 64, scale=0.2)]
+
+
+def check_fused_kernel(fused_block, gen) -> dict:
+    """Phase 11; returns the largest error against the plain version per dtype."""
+    worst = {}
+    cases = [(f"G B3 len {n}", 512 * n, 128 * n) for n in (1, 5, 10)]
+    cases += [(f"D/W B1 len {n}", 128 * n, 32 * n) for n in (1, 5, 10)] + [("ragged", 300, 75)]
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[str(dtype)] = 0.0
+        for what, n, k in cases:
+            ops = fused_operands(4, n, k, dtype, gen)
+            got = fused_block._launch_fused(*ops)
+            ref = fused_block.fused_block_reference(*ops)
+            torch.cuda.synchronize()
+            err = check_close(f"fused kernel vs plain at {what} {dtype}", got, ref,
+                              FUSED_TOL[dtype])
+            say("11 fused-vs-plain", what=what, dtype=str(dtype), n=n, k=k, batch=4,
+                max_abs_err=err, tol=FUSED_TOL[dtype])
+            worst[str(dtype)] = max(worst[str(dtype)], err)
+    # the autograd Function: the fused kernel forward, the composition's
+    # gradient on the core's kernels; against autograd through the plain
+    # composition in the same dtype
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, n, k in [c for c in cases if c[0].startswith("D/W")] + [("ragged", 300, 75)]:
+            ops = fused_operands(2, n, k, dtype, gen)
+            d = torch.randn(2, 64, n, generator=gen, device="cuda").to(dtype)
+            xs = [t.clone().requires_grad_() for t in ops]
+            fused_block.FusedBlock.apply(*xs).backward(d)
+            ys = [t.clone().requires_grad_() for t in ops]
+            fused_block.fused_block_reference(*ys).backward(d)
+            errs = []
+            for name, x, y in zip(("x", "w_theta", "phiT", "gT", "w_out"), xs, ys):
+                scale = y.grad.float().abs().max().item()
+                err = (x.grad.float() - y.grad.float()).abs().max().item()
+                if err > BWD_TOL[dtype] * scale:
+                    raise AssertionError(f"FusedBlock grad {name} at {what} {dtype}: max abs "
+                                         f"error {err} beyond {BWD_TOL[dtype]} x {scale}")
+                errs.append(err / scale)
+            say("11 fused-autograd-vs-plain", what=what, dtype=str(dtype), n=n, k=k,
+                grad_err_rel_to_largest=errs, tol=BWD_TOL[dtype])
+    return worst
+
+
+def serve_fused(g, feeds: dict, images: dict, attention, fused_block) -> int:
+    """Phase 12, the path: G under 'fused' at batch 1024; returns the fused
+    launches."""
+    with dataflow("fused"), torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts(attention, fused_block)
+        fused = {n: g(*feeds[n]) for n in LENGTHS}
+        torch.cuda.synchronize()
+        launches = fused_block.launches
+        if (launches, attention.launches) != (len(LENGTHS), 0):
+            raise AssertionError(f"'fused' G: {launches} fused and {attention.launches} core "
+                                 f"launches for {len(LENGTHS)} forwards")
+    for n in LENGTHS:
+        check_images(fused[n], BATCH, n)
+        err = check_close(f"G 'fused' vs 'nhwc1' at len {n}", fused[n], images[n], G_TOL_PLAIN)
+        say("12 generator fused", length=n, batch=BATCH, dtype="bfloat16",
+            fused_launches_per_forward=launches / len(LENGTHS),
+            max_abs_err_vs_nhwc1=err, tol=G_TOL_PLAIN)
+    return launches
+
+
+def time_fused(g, feeds: dict, fused_block, attention, gen, card: str) -> dict:
+    """Phase 12, times: G's images/s per dataflow in turns; the fused kernel,
+    its plain version and the forward core's library yardstick at B3."""
+    per = {"nhwc1": {n: [] for n in LENGTHS}, "fused": {n: [] for n in LENGTHS}}
+    with torch.inference_mode():
+        for turn in ("nhwc1", "fused", "fused", "nhwc1"):
+            with dataflow(turn):
+                for n in LENGTHS:
+                    labels, z = feeds[n]
+                    per[turn][n].append(cuda_ms(lambda: g(labels, z), 10, warmup=2))
+        for turn, by_len in per.items():
+            for n, ms in by_len.items():
+                say("12 time generator", card=card, dataflow=turn, dtype="bfloat16", length=n,
+                    batch=BATCH, turns="nhwc1, fused, fused, nhwc1", ms_per_batch=ms,
+                    images_per_s=[BATCH / t * 1e3 for t in ms])
+        out = {}
+        for n, plain_batch in ((5, BATCH), (10, BATCH // 2)):
+            q, k = 512 * n, 128 * n
+            ops = fused_operands(BATCH, q, k, torch.bfloat16, gen)
+            kernel_ms = cuda_ms(lambda: fused_block._launch_fused(*ops), 10)
+            small = [t[:plain_batch] if t.dim() == 3 else t for t in ops]
+            kernel_small_ms = cuda_ms(lambda: fused_block._launch_fused(*small), 10)
+            plain_ms = cuda_ms(lambda: fused_block.fused_block_reference(*small), 5)
+            bound_ms, bound_by = fused_bound(BATCH, q, k, torch.bfloat16)
+            say("12 time fused block", card=card, dtype="bfloat16", length=n, n=q, k=k,
+                kernel_ms_batch1024=kernel_ms, kernel_ms=kernel_small_ms, plain_ms=plain_ms,
+                batch_compared=plain_batch, bound_ms_batch1024=bound_ms, bound_by=bound_by)
+            out[n] = (kernel_ms, plain_ms)
+            del ops, small
+            torch.cuda.empty_cache()
+        thetaT, phiT, gT = b3_operands(BATCH, 2560, 640, torch.bfloat16, gen)
+        q_, k_, v_ = (t.transpose(1, 2).unsqueeze(1).contiguous() for t in (thetaT, phiT, gT))
+        out["library_fwd"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, scale=1.0), 10)
+        say("12 time library attention", card=card, call="F.scaled_dot_product_attention",
+            dtype="bfloat16", batch=BATCH, q=2560, k=640, ms=out["library_fwd"])
+        del thetaT, phiT, gT, q_, k_, v_
+    q_, k_, v_, d_ = (t.transpose(1, 2).unsqueeze(1).contiguous()
+                      for t in bwd_operands(TRAIN_BATCH, 2560, 640, torch.float32, gen))
+    q_, k_, v_ = (t.requires_grad_() for t in (q_, k_, v_))
+    o_ = torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, scale=1.0)
+    out["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(o_, (q_, k_, v_), d_,
+                                                             retain_graph=True), 10)
+    say("12 time library attention backward", card=card, dtype="float32", batch=TRAIN_BATCH,
+        q=2560, k=640, ms=out["library_bwd"])
+    return out
+
+
+def check_train_step_fused(attention, fused_block, load_config, synthetic_batch,
+                           make_train_step, METRIC_NAMES) -> int:
+    """Phase 13; returns the fused launches of the two 10-step runs."""
+    rng = np.random.default_rng(2)
+    total = 0
+    for name, cfg in train_configs(load_config).items():
+        kcfg = with_core(cfg, True)
+        trees = fake_trees(kcfg)
+        length = cfg.io.seq_len or 5
+        batches = [synthetic_batch(cfg, TRAIN_BATCH, length, rng) for _ in range(TRAIN_STEPS)]
+        with dataflow("fused"):
+            state = state_of(kcfg, trees, "cuda")
+            step = make_train_step(kcfg, state.models)
+            torch.cuda.synchronize()
+            reset_counts(attention, fused_block)
+            metrics = [step(state, b) for b in batches]
+            torch.cuda.synchronize()
+            counts = (fused_block.launches, attention.launches, attention.bwd_launches)
+            want = (FWD_PER_STEP * TRAIN_STEPS,) * 3
+            if counts != want:
+                raise AssertionError(f"{name} under 'fused': (fused, core forward, core "
+                                     f"backward) launches {counts}, derived {want}")
+            total += counts[0]
+            del state, step
+            values = np.array([[float(m[k]) for k in METRIC_NAMES] for m in metrics])
+            if not np.isfinite(values).all():
+                raise AssertionError(f"{name} under 'fused': non-finite metrics")
+            say("13 train step fused", config=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                launches_per_step=dict(zip(("fused", "core_fwd", "core_bwd"),
+                                           [c / TRAIN_STEPS for c in counts])),
+                first=dict(zip(METRIC_NAMES, values[0].tolist())),
+                last=dict(zip(METRIC_NAMES, values[-1].tolist())))
+            fused = state_of(kcfg, trees, "cuda")
+            m_fused = make_train_step(kcfg, fused.models)(fused, batches[0])
+        with dataflow("nhwc1"):
+            nhwc1 = state_of(kcfg, trees, "cuda")
+            m_nhwc1 = make_train_step(kcfg, nhwc1.models)(nhwc1, batches[0])
+        # the two balanced metrics scale by std(g_loss) over the batch (~3e-4 at
+        # this state, a std of nearly equal values), which the two dataflows'
+        # bf16 roundings in D and W move by ~10%: they are held as in the
+        # card-vs-CPU check
+        errs = {k: abs(float(m_fused[k]) - float(m_nhwc1[k])) for k in METRIC_NAMES}
+        tols = {k: CPU_TOL_BALANCED if k.endswith("_balanced") else STEP_TOL_METRICS
+                for k in METRIC_NAMES}
+        bad = [k for k in METRIC_NAMES if errs[k] > tols[k] * (1 + abs(float(m_nhwc1[k])))]
+        grads, flips = gradient_check(fused, nhwc1, STEP_TOL_GRAD, cfg.optimizer.beta_2)
+        if bad or any(grads[n] > STEP_TOL_GRAD[n] for n in grads) or any(flips.values()):
+            raise AssertionError(f"{name}: 'fused' vs 'nhwc1' step 1: metrics {bad}, grads "
+                                 f"{grads}, updated parameters {flips}")
+        say("13 train step fused-vs-nhwc1", config=name, step=1, metric_errs=errs,
+            max_metric_err=max(errs.values()), tol_metrics=STEP_TOL_METRICS,
+            tol_balanced=CPU_TOL_BALANCED, grad_norm_err=grads, tol_grads=STEP_TOL_GRAD,
+            updated_param_mismatches=flips)
+        del fused, nhwc1
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_workdir_cli(attention, fused_block, train_main, infer_main, load_config) -> int:
+    """Phase 14, under 'fused': train --workdir for 3 steps, then 2 more that
+    resume at step 3; infer --model-dir serves the newest export. Returns the
+    train runs' fused launches: 7 a step, and one a standing-stats forward
+    of G before each of the two exports (recommended config: EMA on)."""
+    standing = load_config(str(ROOT / "configs" / "recommended.json")
+                           ).optimizer.ema_standing_stat_batches
+    want = 5 * FWD_PER_STEP + 2 * standing
+    workdir = OUT_DIR / "workdir"
+    shutil.rmtree(workdir, ignore_errors=True)
+    logs = []
+    with dataflow("fused"):
+        reset_counts(attention, fused_block)
+        for steps in (3, 2):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                train_main(["--device", "cuda", "--steps", str(steps),
+                            "--workdir", str(workdir)])
+            logs.append(out.getvalue())
+        train_launches = fused_block.launches
+        if ("resumed" in logs[0] or "resumed from checkpoint at step 3" not in logs[1]
+                or "step 5: d_loss=" not in logs[1] or train_launches != want):
+            raise AssertionError(f"train --workdir: {train_launches} fused launches, "
+                                 f"derived {want}; "
+                                 f"second run's log:\n{logs[1][-2000:]}")
+        ckpts = sorted(p.name for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
+        export = workdir / "model" / "generator" / "5"
+        if ckpts != ["3", "5"] or not (export / "config.json").is_file():
+            raise AssertionError(f"train --workdir: checkpoints {ckpts}, export {export}")
+        out_path = OUT_DIR / "workdir_hopper.npy"
+        before = fused_block.launches
+        infer_main(["--model-dir", str(workdir / "model"), "--word", "Hopper", "-n", "4",
+                    "--device", "cuda", "--out", str(out_path)])
+        served = np.load(out_path)
+        if (served.shape != (4, 32, 96, 1) or not np.isfinite(served).all()
+                or np.abs(served).max() > 1 or fused_block.launches != before + 1):
+            raise AssertionError(f"infer --model-dir: {served.shape}")
+    say("14 workdir cli", dataflow="fused", runs="3 steps, then 2 resumed at step 3",
+        checkpoints=ckpts, export=str(export.relative_to(ROOT)),
+        train_fused_launches=train_launches, served=str(out_path.relative_to(ROOT)),
+        shape=served.shape)
+    return train_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -492,13 +815,15 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = "nhwc1"  # the 'fused' phases set it themselves
+    LOG.unlink(missing_ok=True)
     from scrabblegan_torch.convert import (fake_flax_variables, generator_from_flax,
                                            save_flax_npz)
     from scrabblegan_torch.infer import main as infer_main
-    from scrabblegan_torch.kernels import attention, build
+    from scrabblegan_torch.kernels import attention, build, fused_block
     from scrabblegan_torch.models.build import load_config, noise_config
     from scrabblegan_torch.train import main as train_main
-    from scrabblegan_torch.train.cli import synthetic_batch
+    from scrabblegan_torch.data.synthetic import synthetic_batch
     from scrabblegan_torch.train.step import METRIC_NAMES, make_train_step
 
     # 1. device
@@ -512,8 +837,10 @@ def main() -> int:
     lib = build.load_library()
     build_s = time.perf_counter() - t0
     tiles = (lib.attention_fwd_key_tile(), lib.attention_fwd_key_chunk(),
-             lib.attention_bwd_tile())
-    if tiles != (attention.KEY_TILE, attention.KEY_CHUNK, attention.BWD_TILE):
+             lib.attention_bwd_tile(), lib.fused_block_fwd_key_tile(),
+             lib.fused_block_fwd_channels())
+    if tiles != (attention.KEY_TILE, attention.KEY_CHUNK, attention.BWD_TILE,
+                 attention.KEY_TILE, fused_block.KERNEL_C):
         raise AssertionError(f"kernel tiles {tiles} differ from the CPU emulations'")
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -523,18 +850,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = check_kernel(attention, gen)
 
+    # 11. the fused kernel vs its plain version
+    fused_err = check_fused_kernel(fused_block, gen)
+
     # 4. the generator at full width through the kernel
     cfg = noise_config(None, {"shared.dtype": "bfloat16"})
     variables = fake_flax_variables(cfg, seed=0)
     g = generator_from_flax(variables, cfg, "cuda")
     feeds = {n: make_inputs(BATCH, n, gen) for n in LENGTHS}
     torch.cuda.synchronize()
-    attention.launches = 0
+    reset_counts(attention, fused_block)
     with torch.inference_mode():
         images = {n: g(*feeds[n]) for n in LENGTHS}
         torch.cuda.synchronize()
     main_path_launches = attention.launches
-    if main_path_launches != len(LENGTHS):
+    if (main_path_launches, fused_block.launches) != (len(LENGTHS), 0):
         raise AssertionError(f"{main_path_launches} kernel launches for {len(LENGTHS)} forwards")
     for n in LENGTHS:
         check_images(images[n], BATCH, n)
@@ -619,6 +949,11 @@ def main() -> int:
         say("6 time generator", card=card, dtype="bfloat16", length=5, batch=BATCH,
             core="plain", ms_per_batch=ms, images_per_s=BATCH / ms * 1e3)
 
+    # 12. G serving under 'fused', and its times
+    fused_serving = serve_fused(g, feeds, images, attention, fused_block)
+    fused_ms = time_fused(g, feeds, fused_block, attention, gen, card)
+    del images
+
     # 7. the backward kernel vs the plain backward
     bwd_err = check_backward_kernel(attention, gen)
 
@@ -628,8 +963,15 @@ def main() -> int:
                                             make_train_step, METRIC_NAMES)
     check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step, METRIC_NAMES)
 
+    # 13. the train step under 'fused'
+    fused_train = check_train_step_fused(attention, fused_block, load_config, synthetic_batch,
+                                         make_train_step, METRIC_NAMES)
+
     # 9. the train CLI and the served export
     check_train_cli(attention, train_main, infer_main)
+
+    # 14. the workdir CLI under 'fused': checkpoints, resume, the export served
+    fused_cli = check_workdir_cli(attention, fused_block, train_main, infer_main, load_config)
 
     # 10. times
     bwd_ms = time_backward(attention, gen, card)
@@ -638,20 +980,39 @@ def main() -> int:
 
     kernel_ms, plain_ms = core_ms[5]  # the same shape: batch 1024
     bwd_kernel_ms, bwd_plain_ms = bwd_ms[("G B3 len 5", TRAIN_BATCH)]
-    print(json.dumps({"kernels": [
+    fused_kernel_ms, fused_plain_ms = fused_ms[5]
+    rows = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/attention_fwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:111",
          "launches": train_launches["fwd"], "serving_launches": main_path_launches,
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+         "shape": "G B3 len 5, batch 1024, bf16",
+         **dict(zip(("bound_ms", "bound_by"), core_bound(BATCH, 2560, 640, torch.bfloat16,
+                                                         backward=False))),
+         "library_ms": fused_ms["library_fwd"]},
         {"name": "attention_bwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/attention_bwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:195",
          "launches": train_launches["bwd"], "max_abs_err": bwd_err,
-         "ms": bwd_kernel_ms, "plain_ms": bwd_plain_ms}]}))
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax"))
+         "ms": bwd_kernel_ms, "plain_ms": bwd_plain_ms, "shape": "G B3 len 5, batch 16, f32",
+         **dict(zip(("bound_ms", "bound_by"), core_bound(TRAIN_BATCH, 2560, 640, torch.float32,
+                                                         backward=True))),
+         "library_ms": fused_ms["library_bwd"]},
+        {"name": "fused_block_fwd", "route": "cuda",
+         "source": "scrabblegan_torch/csrc/fused_block_fwd.cu",
+         "replaces": "scrabblegan_tpu/kernels/attention.py:333",
+         "launches": fused_train, "serving_launches": fused_serving,
+         "cli_launches": fused_cli, "max_abs_err": max(fused_err.values()),
+         "max_abs_err_by_dtype": fused_err, "ms": fused_kernel_ms, "plain_ms": fused_plain_ms,
+         "shape": "G B3 len 5, batch 1024, bf16",
+         **dict(zip(("bound_ms", "bound_by"), fused_bound(BATCH, 2560, 640, torch.bfloat16))),
+         "library_ms": None}]
+    print(json.dumps({"kernels": rows}))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "scrabblegan_tpu"))
     if loaded:
-        raise AssertionError(f"JAX modules were imported: {loaded[:5]}")
+        raise AssertionError(f"JAX or the JAX package was imported: {loaded[:5]}")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -3,14 +3,16 @@
 The JAX package `scrabblegan_tpu` is the reference: every module here names
 its JAX counterpart, loads the same weights (converted from the flax variable
 trees by `scrabblegan_torch.convert`) and is held to the JAX output by the
-`tests/test_torch_*.py` parity tests. This package imports `torch` and never
-JAX, flax, optax or orbax; it reuses only the JAX package's framework-free host
-modules (`config`, `data.loaders.encode_word`, `utils.viz`).
+`tests/test_torch_*.py` parity tests. This package imports `torch` and
+nothing of JAX, flax, optax, orbax or the JAX package itself: what it needs
+of the JAX package's framework-free host modules it holds as its own copies
+(`config`, `data.loaders`, `utils.viz`).
 
-Layout is NCHW throughout. The attention core's forward and backward, the
-TPU kernels on the serving path and the train step, run as hand-written CUDA
-kernels for sm_90a (`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`, bound
-in `kernels/attention.py`).
+Layout is NCHW throughout. The three TPU kernels run as hand-written CUDA
+kernels for sm_90a: the attention core's forward and backward
+(`csrc/attention_fwd.cu`, `csrc/attention_bwd.cu`, bound in
+`kernels/attention.py`) and the whole non-local block of the 'fused'
+attention dataflow (`csrc/fused_block_fwd.cu`, `kernels/fused_block.py`).
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from scrabblegan_tpu.config import Config
+from scrabblegan_torch.config import Config
 from scrabblegan_torch.models.build import build_generator, build_models
 from scrabblegan_torch.models.generator import Generator
 from scrabblegan_torch.ops.layers import FlaxLeaf

@@ -15,7 +15,8 @@ unscaled (no 1/sqrt(d)), float32 or bfloat16 in and out, float32 inside.
 Dispatch has no fallback: a CPU tensor takes `attention_reference`, which
 autograd differentiates; a CUDA tensor goes through `AttentionCore`, whose
 forward and backward launch the kernels or raise. `launches` and
-`bwd_launches` count kernel launches. The fused-block kernel is not ported.
+`bwd_launches` count kernel launches. The whole-block kernel of the 'fused'
+dataflow is in `kernels/fused_block.py`.
 """
 
 from __future__ import annotations
@@ -54,9 +55,19 @@ def attention_tiled_emulation(thetaT: torch.Tensor, phiT: torch.Tensor,
     of `key_chunk` scores, with keys past the end masked to -inf; an online
     softmax in base 2 whose running max moves once per chunk; one division by
     the running sum at the end."""
-    b, ca, q = thetaT.shape
-    cg, k = gT.shape[1], gT.shape[2]
     theta = thetaT.float().transpose(1, 2) * LOG2E  # (B, Q, Ca)
+    out = online_softmax_emulation(theta, phiT, gT, key_tile, key_chunk)
+    return out.transpose(1, 2).to(thetaT.dtype)
+
+
+def online_softmax_emulation(theta: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
+                             key_tile: int = KEY_TILE, key_chunk: int = KEY_CHUNK
+                             ) -> torch.Tensor:
+    """The K walk of csrc/attention_fwd.cu and csrc/fused_block_fwd.cu:
+    theta (B, Q, Ca) float32 in log2 units -> (B, Q, Cg) float32, divided by
+    the running sum."""
+    b, q, ca = theta.shape
+    cg, k = gT.shape[1], gT.shape[2]
     m = torch.full((b, q, 1), float("-inf"))
     l = torch.zeros(b, q, 1)
     acc = torch.zeros(b, q, cg)
@@ -75,7 +86,7 @@ def attention_tiled_emulation(thetaT: torch.Tensor, phiT: torch.Tensor,
             l = l * scale + p.sum(-1, keepdim=True)
             acc = acc * scale + p @ g_t[..., j0:j0 + key_chunk].transpose(1, 2)
             m = m_new
-    return (acc * (1.0 / l)).transpose(1, 2).to(thetaT.dtype)
+    return acc * (1.0 / l)
 
 
 def attention_backward_reference(thetaT: torch.Tensor, phiT: torch.Tensor,

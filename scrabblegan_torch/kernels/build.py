@@ -42,7 +42,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.attention_fwd.restype = i
     lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, ll, ll, ll, ll, i, i, p]
     lib.attention_bwd.restype = i
-    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk", "attention_bwd_tile"):
+    lib.fused_block_fwd.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
+    lib.fused_block_fwd.restype = i
+    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk", "attention_bwd_tile",
+                 "fused_block_fwd_channels", "fused_block_fwd_key_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     return lib

@@ -1,4 +1,4 @@
-"""Build the port's networks from the JAX package's Config.
+"""Build the port's networks from a Config (`scrabblegan_torch.config`).
 
 Port of scrabblegan_tpu/train/state.py `build_models`: G, D, R and W with
 their compute dtypes (G and R in `shared.dtype`; D, W and G's style encoder
@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from scrabblegan_tpu.config import Config, load_config
+from scrabblegan_torch.config import Config, load_config
 from scrabblegan_torch import resolve_device
 from scrabblegan_torch.models.discriminator import Discriminator
 from scrabblegan_torch.models.generator import Generator

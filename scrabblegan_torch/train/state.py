@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from scrabblegan_tpu.config import Config
+from scrabblegan_torch.config import Config
 from scrabblegan_torch import resolve_device
 from scrabblegan_torch.convert import flax_leaves, flax_shapes, load_flax, unflatten
 from scrabblegan_torch.models.build import ModelBundle, build_models

@@ -36,7 +36,7 @@ from typing import Callable, Mapping
 import torch
 from torch.func import functional_call
 
-from scrabblegan_tpu.config import Config
+from scrabblegan_torch.config import Config
 from scrabblegan_torch.models.build import ModelBundle
 from scrabblegan_torch.ops.balance import balanced_fanout, gradient_balance
 from scrabblegan_torch.ops.ctc import ctc_loss

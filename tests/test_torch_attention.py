@@ -116,13 +116,15 @@ def test_nonlocal_block_matches_jax(dtype, use_kernel):
     np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dataflow,error", [
-    ("fused", NotImplementedError), ("bogus", ValueError)])
+@pytest.mark.parametrize("dataflow,error", [("fused", None), ("bogus", ValueError)])
 def test_nonlocal_block_dataflows(dataflow, error):
     for ok in ("nhwc", "nhwc1", "packed"):
         NonLocalBlock(64, dataflow=ok)
-    with pytest.raises(error):
-        NonLocalBlock(64, dataflow=dataflow)
+    if error is None:
+        assert NonLocalBlock(64, dataflow=dataflow).dataflow == dataflow
+    else:
+        with pytest.raises(error):
+            NonLocalBlock(64, dataflow=dataflow)
 
 
 def test_wrapper_checks_and_cpu_dispatch():

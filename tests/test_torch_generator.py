@@ -10,6 +10,7 @@ Tolerances on images in [-1, 1]: 1e-4 absolute in float32 (the two sides
 differ only in summation order); 2e-2 in bfloat16, where the frameworks round
 at different places through some twenty layers (measured ~5e-3)."""
 
+import dataclasses
 import functools
 import importlib.util
 import subprocess
@@ -43,7 +44,8 @@ def cfg_for(dtype="float32", padded=False, **extra):
 
 def test_noise_config():
     assert noise_config().shared.z_source == "noise"
-    assert noise_config(None, {"shared.dtype": "bfloat16"}) == cfg_for("bfloat16")
+    assert dataclasses.asdict(noise_config(None, {"shared.dtype": "bfloat16"})) == \
+        dataclasses.asdict(cfg_for("bfloat16"))
 
 
 def jax_generator(dtype="float32", padded=False):
