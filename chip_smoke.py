@@ -11,16 +11,22 @@ each or more:
 1. device: a CUDA card is required; its name and power limit (nvidia-smi);
 2. build: nvcc builds scrabblegan_torch/csrc for sm_90a; build seconds;
 3. kernel vs plain core at G's B3 shapes (Q = 512L, K = 128L for L = 1, 5, 10),
-   at D's and W's B1 shapes (Q = 128L, K = 32L) and at a ragged Q = 300,
-   K = 75, float32 within 1e-4 and bfloat16 within 2e-2 (absolute plus
-   relative), the tolerances of the JAX kernel's tests;
+   at D's and W's B1 shapes (Q = 128L, K = 32L), at a ragged Q = 300,
+   K = 75, and at two shapes that stress the staging of the keys (K = 75
+   under Q = 640: not a multiple of 8, copied element by element; K = one
+   key tile + 8: a second tile of one 16-byte copy a row), float32 within
+   1e-4 and bfloat16 within 2e-2 (absolute plus relative), the tolerances of
+   the JAX kernel's tests;
 4. the generator at batch 1024, len 5 and len 10, through the kernel: one
    launch per forward; finite images in [-1, 1]; agreement with the same
    generator on the plain core at batch 16 (bf16, 2e-2) and with the CPU
    port at batch 2 (float32, 1e-3); padded mode's white-out;
 5. serve: scrabblegan_torch.infer.main on an .npz of those weights;
-6. times (CUDA events after a warm-up): kernel and plain core at B3, and the
-   generator's images/s, each printed with the card's name and power limit;
+6. times (CUDA events after a warm-up): kernel and plain core at B3 (bf16 at
+   batch 1024, float32 at batch 16), the generator's images/s, and a
+   profiler trace of 3 forwards at len 5 and 10 (device busy share, ms a
+   forward by kernel class), each printed with the card's name and power
+   limit;
 7. the backward kernel vs the plain backward at every shape the step runs
    (G's B3 and D/W's B1 at L = 1, 5, 10, the style images' (1280, 320), a
    ragged (300, 75)), batch 4, float32 within 2e-4 (TF32 off) and bfloat16
@@ -31,7 +37,8 @@ each or more:
    the JAX bench's bucketed len-5 config, from seeded flax-layout weights
    (attention sigma != 0): 10 steps each through the kernels, finite
    metrics, 7 forward and 7 backward launches a step; step 1 (metrics,
-   gradients, updated parameters) against the same step on the plain cores;
+   gradients, updated parameters) against the same step on the plain cores,
+   both under cuDNN's deterministic algorithms, so that two runs agree;
    one float32 step at batch 2, len 2 on the card against the CPU port;
 9. the train CLI (3 steps, export G) and the inference CLI serving the
    export with noise z;
@@ -46,8 +53,9 @@ csrc/fused_block_fwd.cu) adds four phases, each run after the phase of the
 same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10):
 
 11. the fused kernel vs its plain version (the composition on the plain
-   core) at G's B3 and D's and W's B1 shapes for L = 1, 5, 10 and a ragged
-   N = 300, K = 75, batch 4, float32 within 5e-4 and bfloat16 within 1e-1
+   core) at G's B3 and D's and W's B1 shapes for L = 1, 5, 10, a ragged
+   N = 300, K = 75 and phase 3's two staging shapes, batch 4, float32 within
+   5e-4 and bfloat16 within 1e-1
    (the JAX fused-kernel test's tolerances); the autograd Function's grads
    vs autograd through the plain composition in the same dtype, within 2e-4
    (float32) and 2e-2 (bfloat16) of each gradient's largest entry;
@@ -71,10 +79,13 @@ count is set to 0 just before a path runs and read just after it.
 
 Then one JSON line {"kernels": [...]}: per kernel its launches on the paths,
 its largest error against the plain version, its ms, the plain version's ms,
-the least time the card could take for the same work (bound_ms: the larger
-of the bytes the call must move over 3.35 TB/s and its operations over 989
-TFLOP/s in bf16 or 67 TFLOP/s in float32, the H100 SXM's published peaks)
-and, where one PyTorch call computes the same function, that call's ms
+the least time the card could take for the same work (bound_ms: the largest
+of the bytes the call must move over 3.35 TB/s, its operations over 989
+TFLOP/s in bf16 or 67 TFLOP/s in float32, the H100 SXM's published peaks,
+and its exponentials, one a (query, key) pair, over the special-function
+units' 16 a clock on each SM at the card's largest SM clock, which phase 1
+prints; bound_by names the term) and, where one PyTorch call computes the
+same function, that call's ms
 (F.scaled_dot_product_attention with scale 1, timed as a yardstick only).
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure raises and the exit code is non-zero; without a card the script
@@ -87,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -124,6 +136,13 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def staging_shapes() -> list[tuple[int, int]]:
+    """(Q, K) that stress the staging of the keys: K not a multiple of 8 under
+    a Q of whole blocks, and K just past a key tile."""
+    from scrabblegan_torch.kernels.attention import KEY_TILE
+    return [(640, 75), (640, KEY_TILE + 8)]
 
 
 def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
@@ -164,7 +183,7 @@ def check_kernel(attention, gen) -> float:
     error."""
     worst = 0.0
     cases = [(512 * n, 128 * n) for n in (1, 5, 10)]
-    cases += [(128 * n, 32 * n) for n in (1, 5, 10)] + [(300, 75)]
+    cases += [(128 * n, 32 * n) for n in (1, 5, 10)] + [(300, 75)] + staging_shapes()
     for dtype in (torch.float32, torch.bfloat16):
         for q, k in cases:
             ops = b3_operands(4, q, k, dtype, gen)
@@ -303,6 +322,21 @@ def state_of(cfg, trees: dict, device):
                            {n: t.get("batch_stats", {}) for n, t in trees.items()}, device)
 
 
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms only, for two steps that are compared
+    with each other: under its default choice two runs of one step differ (the
+    same code and data gave 5.5e-4 and 1.7e-3 on the balanced metrics, which
+    scale by a std of ~3e-4 over the batch), and the comparison should see
+    the two attention cores, not two convolution algorithms."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def gradient_check(state, ref_state, tols: dict, beta_2: float) -> tuple[dict, dict]:
     """Two states after their first step from one start, held by the rule of
     scrabblegan_torch.train.compare. Per network: the largest leaf error of
@@ -356,19 +390,20 @@ def check_train_step(attention, load_config, synthetic_batch, make_train_step,
             first=dict(zip(METRIC_NAMES, values[0].tolist())),
             last=dict(zip(METRIC_NAMES, values[-1].tolist())))
         # step 1 on the plain cores, from the same start, on the same batch
-        plain = pstep(pstate, batches[0])
-        torch.cuda.synchronize()
-        if (attention.launches, attention.bwd_launches) != (fwd, bwd):
-            raise AssertionError("the plain-core step launched a kernel")
-        ref = state_of(kcfg, trees, "cuda")
-        kernel1 = make_train_step(kcfg, ref.models)(ref, batches[0])
+        with deterministic_convs():
+            plain = pstep(pstate, batches[0])
+            torch.cuda.synchronize()
+            if (attention.launches, attention.bwd_launches) != (fwd, bwd):
+                raise AssertionError("the plain-core step launched a kernel")
+            ref = state_of(kcfg, trees, "cuda")
+            kernel1 = make_train_step(kcfg, ref.models)(ref, batches[0])
         errs = {k: abs(float(kernel1[k]) - float(plain[k])) for k in METRIC_NAMES}
         bad = [k for k in METRIC_NAMES if errs[k] > STEP_TOL_METRICS * (1 + abs(float(plain[k])))]
         grads, flips = gradient_check(ref, pstate, STEP_TOL_GRAD, cfg.optimizer.beta_2)
         if bad or any(grads[n] > STEP_TOL_GRAD[n] for n in grads) or any(flips.values()):
             raise AssertionError(f"{name}: kernel vs plain step 1: metrics {bad}, grads {grads}, "
                                  f"updated parameters {flips}")
-        say("8 train step kernel-vs-plain", config=name, step=1,
+        say("8 train step kernel-vs-plain", config=name, step=1, metric_errs=errs,
             max_metric_err=max(errs.values()), tol_metrics=STEP_TOL_METRICS,
             grad_norm_err=grads, tol_grads=STEP_TOL_GRAD, updated_param_mismatches=flips)
         attention.launches, attention.bwd_launches = fwd, bwd
@@ -489,18 +524,10 @@ def profile_train_steps(runs: dict, make_train_step, card: str) -> None:
         profile_steps(core, state, make_train_step(cfg, state.models), batches[:5], card)
 
 
-def profile_steps(core: str, state, step, batches: list, card: str) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
-    step(state, batches[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches:
-            step(state, b)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    n = len(batches)
+def device_activity(prof) -> tuple[list, float, float, dict]:
+    """A profile's device events, the time some kernel was running (the union
+    of their intervals), the span from the first kernel's start to the last's
+    end, and {kernel name: [total time, count]}; times in microseconds."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiler recorded no device activity")
@@ -513,12 +540,70 @@ def profile_steps(core: str, state, step, batches: list, card: str) -> None:
         else:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
     by_name: dict = {}
     for e in kernels:
         t = by_name.setdefault(e.name, [0.0, 0])
         t[0] += e.time_range.end - e.time_range.start
         t[1] += 1
+    return kernels, busy, spans[-1][1] - spans[0][0], by_name
+
+
+# kernel classes of G's serving profile, by substrings of the kernel's name, first match
+SERVING_CLASSES = (
+    ("attention kernel", ("attention_fwd", "fused_block_fwd")),
+    ("layout transforms", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc", "nhwc2nchw")),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
+    ("max pool", ("max_pool",)),
+    ("conv and matmul math", ("cudnn", "xmma", "cutlass", "gemm", "conv", "wgrad", "dgrad",
+                              "nvjet")),
+    ("elementwise", ("elementwise", "vectorized", "CatArray", "copy", "fill")))
+
+
+def profile_generator(g, feeds: dict, card: str) -> None:
+    """Phase 6: torch.profiler over 3 forwards of G at batch 1024, per length
+    and dataflow: device busy share and ms a forward by kernel class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    forwards = 3
+    for flow in ("nhwc1", "fused"):
+        for n in LENGTHS:
+            labels, z = feeds[n]
+            with dataflow(flow), torch.inference_mode():
+                g(labels, z)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(forwards):
+                        g(labels, z)
+                    torch.cuda.synchronize()
+            kernels, busy, span, by_name = device_activity(prof)
+            classes = {name: 0.0 for name, _ in SERVING_CLASSES}
+            classes["other"] = 0.0
+            for kernel, (t, _) in by_name.items():
+                cls = next((name for name, keys in SERVING_CLASSES
+                            if any(k in kernel for k in keys)), "other")
+                classes[cls] += t / forwards / 1e3
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+            say("6 profile generator", card=card, dataflow=flow, length=n, batch=BATCH,
+                dtype="bfloat16", forwards=forwards, device_busy_share=busy / span,
+                device_busy_ms_per_forward=busy / forwards / 1e3,
+                kernels_per_forward=len(kernels) / forwards, ms_per_forward_by_class=classes,
+                top_kernels_ms_per_forward=[(k[:90], t / forwards / 1e3, c / forwards)
+                                            for k, (t, c) in top])
+
+
+def profile_steps(core: str, state, step, batches: list, card: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(batches)
+    kernels, busy, span, by_name = device_activity(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     attn = {k: (t / n / 1e3, c / n) for k, (t, c) in by_name.items() if "attention_" in k}
     table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=30)
@@ -536,6 +621,7 @@ def profile_steps(core: str, state, step, batches: list, card: str) -> None:
 FUSED_TOL = {torch.float32: 5e-4, torch.bfloat16: 1e-1}  # tests/test_kernels.py:109-118
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+EXP_PER_CLOCK_PER_SM = 16  # special-function units, compute capability 9.0
 
 
 @contextlib.contextmanager
@@ -559,32 +645,48 @@ def reset_counts(*modules) -> None:
                 setattr(m, name, 0)
 
 
-def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
-    """(ms, 'bytes' or 'operations'): the larger of the two least times."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+@functools.cache
+def sm_clock_hz() -> float:
+    """The card's largest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(bytes_moved: float, flops: float, exps: float, dtype) -> tuple[float, str]:
+    """(ms, 'bytes', 'operations' or 'exponentials'): the largest of the three
+    least times. The exponentials run on the special-function units, 16 a
+    clock on each SM, at the largest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_FLOPS[dtype] * 1e3,
+             "exponentials": exps / (EXP_PER_CLOCK_PER_SM * sms * sm_clock_hz()) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def core_bound(batch: int, q: int, k: int, dtype, backward: bool) -> tuple[float, str]:
     """The attention core: theta, phi, g (and dout) read, out (or the three
     grads) written; 2 (Ca + Cg) flops a (q, k) pair forward, 2 (3 Ca + 2 Cg)
-    backward (scores, dA, dtheta, dphi, dg)."""
+    backward (scores, dA, dtheta, dphi, dg); one exponential a pair either
+    way (the backward recomputes the softmax)."""
     size = torch.tensor([], dtype=dtype).element_size()
     elems = 8 * q + 8 * k + 32 * k + 32 * q
     if backward:
         elems += 8 * q + 8 * k + 32 * k
     per_pair = 2 * (3 * 8 + 2 * 32) if backward else 2 * (8 + 32)
-    return bound(size * batch * elems, batch * q * k * per_pair, dtype)
+    return bound(size * batch * elems, batch * q * k * per_pair, batch * q * k, dtype)
 
 
 def fused_bound(batch: int, n: int, k: int, dtype) -> tuple[float, str]:
     """The fused block: x, phi, g and the two weights read, out written; the
-    core's 80 flops a (q, k) pair and 2 (64 x 8 + 32 x 64) a query."""
+    core's 80 flops and one exponential a (q, k) pair and 2 (64 x 8 + 32 x 64)
+    flops a query."""
     size = torch.tensor([], dtype=dtype).element_size()
     elems = batch * (2 * 64 * n + 8 * k + 32 * k) + 64 * 8 + 32 * 64
     flops = batch * n * k * 2 * (8 + 32) + batch * n * 2 * (64 * 8 + 32 * 64)
-    return bound(size * elems, flops, dtype)
+    return bound(size * elems, flops, batch * n * k, dtype)
 
 
 def fused_operands(batch: int, n: int, k: int, dtype, gen: torch.Generator):
@@ -601,6 +703,7 @@ def check_fused_kernel(fused_block, gen) -> dict:
     worst = {}
     cases = [(f"G B3 len {n}", 512 * n, 128 * n) for n in (1, 5, 10)]
     cases += [(f"D/W B1 len {n}", 128 * n, 32 * n) for n in (1, 5, 10)] + [("ragged", 300, 75)]
+    cases += [("staging", n, k) for n, k in staging_shapes()]
     for dtype in (torch.float32, torch.bfloat16):
         worst[str(dtype)] = 0.0
         for what, n, k in cases:
@@ -739,8 +842,9 @@ def check_train_step_fused(attention, fused_block, load_config, synthetic_batch,
                 first=dict(zip(METRIC_NAMES, values[0].tolist())),
                 last=dict(zip(METRIC_NAMES, values[-1].tolist())))
             fused = state_of(kcfg, trees, "cuda")
-            m_fused = make_train_step(kcfg, fused.models)(fused, batches[0])
-        with dataflow("nhwc1"):
+            with deterministic_convs():
+                m_fused = make_train_step(kcfg, fused.models)(fused, batches[0])
+        with dataflow("nhwc1"), deterministic_convs():
             nhwc1 = state_of(kcfg, trees, "cuda")
             m_nhwc1 = make_train_step(kcfg, nhwc1.models)(nhwc1, batches[0])
         # the two balanced metrics scale by std(g_loss) over the batch (~3e-4 at
@@ -830,17 +934,18 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     say("1 device", name=name, nvidia_smi=card, count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, max_sm_clock_mhz=sm_clock_hz() / 1e6,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     # 2. build
     t0 = time.perf_counter()
     lib = build.load_library()
     build_s = time.perf_counter() - t0
     tiles = (lib.attention_fwd_key_tile(), lib.attention_fwd_key_chunk(),
-             lib.attention_bwd_tile(), lib.fused_block_fwd_key_tile(),
-             lib.fused_block_fwd_channels())
-    if tiles != (attention.KEY_TILE, attention.KEY_CHUNK, attention.BWD_TILE,
-                 attention.KEY_TILE, fused_block.KERNEL_C):
+             lib.attention_fwd_warp_queries(), lib.attention_bwd_tile(),
+             lib.fused_block_fwd_key_tile(), lib.fused_block_fwd_channels())
+    if tiles != (attention.KEY_TILE, attention.KEY_CHUNK, attention.WARP_QUERIES,
+                 attention.BWD_TILE, attention.KEY_TILE, fused_block.KERNEL_C):
         raise AssertionError(f"kernel tiles {tiles} differ from the CPU emulations'")
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -933,10 +1038,23 @@ def main() -> int:
             kernel_small_ms = cuda_ms(lambda: attention.nonlocal_attention_packed(*small), 10)
             plain_ms = cuda_ms(lambda: attention.attention_reference(*small), 5)
             core_ms[n] = (kernel_ms, plain_ms)
+            bound_ms, bound_by = core_bound(BATCH, q, k, torch.bfloat16, backward=False)
             say("6 time attention core", card=card, dtype="bfloat16", length=n, q=q, k=k,
                 kernel_ms_batch1024=kernel_ms, kernel_ms=kernel_small_ms, plain_ms=plain_ms,
-                batch_compared=plain_batch)
+                batch_compared=plain_batch, bound_ms_batch1024=bound_ms, bound_by=bound_by)
             del ops, small
+            # float32 operands (G's B3 in the train step) stay on the CUDA cores
+            ops = b3_operands(TRAIN_BATCH, q, k, torch.float32, gen)
+            fops = fused_operands(TRAIN_BATCH, q, k, torch.float32, gen)
+            bound_ms, bound_by = core_bound(TRAIN_BATCH, q, k, torch.float32, backward=False)
+            say("6 time attention core", card=card, dtype="float32", length=n, q=q, k=k,
+                batch=TRAIN_BATCH,
+                kernel_ms=cuda_ms(lambda: attention.nonlocal_attention_packed(*ops), 10),
+                plain_ms=cuda_ms(lambda: attention.attention_reference(*ops), 5),
+                fused_kernel_ms=cuda_ms(lambda: fused_block._launch_fused(*fops), 10),
+                fused_plain_ms=cuda_ms(lambda: fused_block.fused_block_reference(*fops), 5),
+                bound_ms=bound_ms, bound_by=bound_by)
+            del ops, fops
         for n in LENGTHS:
             labels, z = feeds[n]
             ms = cuda_ms(lambda: g(labels, z), 10, warmup=2)
@@ -948,6 +1066,7 @@ def main() -> int:
         g.attn_B3.use_kernel = True
         say("6 time generator", card=card, dtype="bfloat16", length=5, batch=BATCH,
             core="plain", ms_per_batch=ms, images_per_s=BATCH / ms * 1e3)
+    profile_generator(g, feeds, card)
 
     # 12. G serving under 'fused', and its times
     fused_serving = serve_fused(g, feeds, images, attention, fused_block)

@@ -7,160 +7,118 @@
 //   outT[b, :, q] = sum_k softmax_k(theta[b, :, q] . phi[b, :, k]) * g[b, :, k]
 //
 // thetaT (B, 8, Q), phiT (B, 8, K), gT (B, 32, K) -> outT (B, 32, Q), float32
-// or bfloat16 in and out, float32 inside. The attention is unscaled (no
+// or bfloat16 in and out, float32 sums inside. The attention is unscaled (no
 // 1/sqrt(d)), as in the reference's NonLocalBlock.
 //
-// Design (simple and exact first; see the TPU kernel for what it keeps out of
-// device memory: the (Q, K) scores never leave the chip):
-// - grid (ceil(Q / 128), B), 128 threads, one query row per thread; the ragged
-//   Q edge is masked;
-// - each thread keeps theta (8 floats, premultiplied by log2(e)), a running
-//   max and sum, and 32 float32 accumulators in registers;
-// - the block walks K in tiles of KT keys: phi and g of the tile are staged in
-//   shared memory as float32, key-major (40 floats a key), so a thread reads
-//   one key with ten 16-byte broadcast loads;
-// - inside a tile, KS scores at a time are held in registers; the running max
-//   moves once per chunk (online softmax in base 2, exp2f), and the sum is
-//   divided out once at the end;
-// - stores go to outT[b, c, q]: neighbouring threads write neighbouring q.
+// The walk over the keys (scores, online base-2 softmax, value product) is
+// attention_mma.cuh's, shared with the whole-block kernel; see its note for
+// the design. This file adds what surrounds it:
+// - grid (ceil(Q / 128), B), 128 threads; the ragged Q edge is masked;
+// - bfloat16: a warp owns 32 queries. Its theta fragments are read straight
+//   from global memory once (channel pairs of a query are strided by Q);
+//   the divided output goes through shared memory, so a warp stores each
+//   channel's 32 queries as 16-byte vectors (element by element where Q is
+//   not a multiple of 8 or the rows are unaligned);
+// - float32: one thread a query, theta premultiplied by log2(e), the output
+//   stored to outT[b, c, q] with neighbouring threads on neighbouring q.
 //
-// What bounds it: float32 FMAs on the CUDA cores, about 80 flops per (q, k)
-// pair (8 FMAs for the score, 32 for the value product, one exp2). At len 5,
-// batch 1024 (Q = 2560, K = 640) that is ~134 GFLOP against ~0.26 GB of
-// operand traffic, so it is far on the compute side of the roofline. Moving
-// both products onto the tensor cores (mma.sync / wgmma, bf16 or TF32
-// operands with the softmax kept in float32) is later work.
+// What bounds it: at len 5, batch 1024, bfloat16 (Q = 2560, K = 640) the
+// operands are 0.26 GB (0.08 ms at 3.35 TB/s) and the two products 134 GFLOP
+// (0.14 ms on the tensor cores), but the 1.68 G exponentials need about
+// 0.45 ms on the special-function units (16 a clock on each of 132 SMs), so
+// the exponentials and the float32 softmax around them set the pace; the
+// walk keeps them at one exp2 and a handful of float32 operations a pair.
+// float32 operands run 80 flops a pair on the CUDA cores and are bound by
+// those.
 //
 // The C entry launches on the caller's stream, does not synchronise, allocates
 // nothing, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kCa = 8;             // score channels (C / 8)
-constexpr int kCg = 32;            // value channels (C / 2)
-constexpr int kCt = kCa + kCg;     // floats staged per key
-constexpr int kThreads = 128;      // one query row per thread
-constexpr int kKt = kThreads;      // keys per shared-memory tile: one per thread to stage
-constexpr int kKs = 32;            // scores held in registers per chunk
-constexpr float kLog2e = 1.4426950408889634f;
-
-static_assert(kKt % kKs == 0, "a tile holds whole chunks");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace attn;
 
 // Each operand's (C, N) block is dense; *_bs is its batch stride in elements,
 // so channel slices of a wider projection are taken without a copy.
-template <typename T>
+__global__ void __launch_bounds__(kThreads, kMmaBlocks)
+attention_fwd_mma_kernel(const bf16* __restrict__ thetaT, const bf16* __restrict__ phiT,
+                         const bf16* __restrict__ gT, bf16* __restrict__ outT, int q_len,
+                         int k_len, long long theta_bs, long long phi_bs, long long g_bs,
+                         int vec_k, int vec_q) {
+  __shared__ __align__(16) bf16 kv[2][kCt][kRow];
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kQb;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* th = thetaT + b * theta_bs;
+  const bf16* ph = phiT + b * phi_bs;
+  const bf16* gg = gT + b * g_bs;
+
+  stage_kv(kv[0], ph, gg, k_len, 0, vec_k);
+
+  const int qw = q0 + warp * kWarpQ;
+  uint32_t theta[kMt][2];
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = qw + mt * 16 + h * 8 + g;
+      const bf16 zero = __float2bfloat16(0.f);
+      theta[mt][h] = pack_bf16(q < q_len ? th[(long long)(2 * t) * q_len + q] : zero,
+                               q < q_len ? th[(long long)(2 * t + 1) * q_len + q] : zero);
+    }
+
+  const bool warp_active = qw < q_len;
+  float acc[kMt][4][4];
+  float l[2 * kMt];
+  kwalk_mma<false>(theta, ph, gg, k_len, vec_k, kv, warp_active, acc, l);
+
+  if (!warp_active) return;
+  bf16(*tile)[kRow] = kv[0];  // [channel][query of the block]: every key tile is consumed
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / l[2 * mt + h];
+      const int col = warp * kWarpQ + mt * 16 + h * 8 + g;
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct) {
+        tile[ct * 8 + 2 * t][col] = __float2bfloat16(acc[mt][ct][2 * h] * inv);
+        tile[ct * 8 + 2 * t + 1][col] = __float2bfloat16(acc[mt][ct][2 * h + 1] * inv);
+      }
+    }
+  __syncwarp();
+  warp_copy_out(tile, kCg, outT + (long long)b * kCg * q_len + q0, q_len, warp * kWarpQ,
+                q_len - q0, vec_q);
+}
+
 __global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ thetaT, const T* __restrict__ phiT,
-                     const T* __restrict__ gT, T* __restrict__ outT, int q_len,
-                     int k_len, long long theta_bs, long long phi_bs,
-                     long long g_bs) {
+attention_fwd_fma_kernel(const float* __restrict__ thetaT, const float* __restrict__ phiT,
+                         const float* __restrict__ gT, float* __restrict__ outT, int q_len,
+                         int k_len, long long theta_bs, long long phi_bs, long long g_bs) {
   __shared__ __align__(16) float kv[kKt][kCt];  // [key][phi 0..7 | g 0..31]
 
   const int b = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  const int q = blockIdx.x * kQb + threadIdx.x;
   const bool active = q < q_len;
-  const T* th = thetaT + b * theta_bs;
-  const T* ph = phiT + b * phi_bs;
-  const T* gg = gT + b * g_bs;
+  const float* th = thetaT + b * theta_bs;
 
   float theta[kCa];
 #pragma unroll
-  for (int c = 0; c < kCa; ++c) {
-    theta[c] = active ? to_f32(th[(long long)c * q_len + q]) * kLog2e : 0.f;
-  }
-  float m = -INFINITY;  // running max, log2 units
-  float l = 0.f;        // running sum of exp2(s - m)
+  for (int c = 0; c < kCa; ++c) theta[c] = active ? th[(long long)c * q_len + q] * kLog2e : 0.f;
   float acc[kCg];
-#pragma unroll
-  for (int c = 0; c < kCg; ++c) acc[c] = 0.f;
-
-  for (int k0 = 0; k0 < k_len; k0 += kKt) {
-    const int kn = min(kKt, k_len - k0);
-    __syncthreads();  // the previous tile is consumed
-    {
-      // thread t stages key k0 + t; keys past the end are zero, so the
-      // masked scores below multiply finite values only
-      const int t = threadIdx.x;
-      const bool kin = t < kn;
-      const long long kk = k0 + t;
-#pragma unroll
-      for (int c = 0; c < kCa; ++c) {
-        kv[t][c] = kin ? to_f32(ph[(long long)c * k_len + kk]) : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < kCg; ++c) {
-        kv[t][kCa + c] = kin ? to_f32(gg[(long long)c * k_len + kk]) : 0.f;
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    for (int j0 = 0; j0 < kn; j0 += kKs) {
-      float s[kKs];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kKs; ++j) {
-        const float4* row = reinterpret_cast<const float4*>(kv[j0 + j]);
-        const float4 p0 = row[0];
-        const float4 p1 = row[1];
-        float v = theta[0] * p0.x;
-        v = fmaf(theta[1], p0.y, v);
-        v = fmaf(theta[2], p0.z, v);
-        v = fmaf(theta[3], p0.w, v);
-        v = fmaf(theta[4], p1.x, v);
-        v = fmaf(theta[5], p1.y, v);
-        v = fmaf(theta[6], p1.z, v);
-        v = fmaf(theta[7], p1.w, v);
-        s[j] = (j0 + j < kn) ? v : -INFINITY;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      if (cmax > m) {  // rescale only when the running max moves
-        const float scale = exp2f(m - cmax);  // 0 on the first chunk
-        l *= scale;
-#pragma unroll
-        for (int c = 0; c < kCg; ++c) acc[c] *= scale;
-        m = cmax;
-      }
-#pragma unroll
-      for (int j = 0; j < kKs; ++j) {
-        const float p = exp2f(s[j] - m);
-        l += p;
-        const float4* gv = reinterpret_cast<const float4*>(&kv[j0 + j][kCa]);
-#pragma unroll
-        for (int c4 = 0; c4 < kCg / 4; ++c4) {
-          const float4 v = gv[c4];
-          acc[4 * c4 + 0] = fmaf(p, v.x, acc[4 * c4 + 0]);
-          acc[4 * c4 + 1] = fmaf(p, v.y, acc[4 * c4 + 1]);
-          acc[4 * c4 + 2] = fmaf(p, v.z, acc[4 * c4 + 2]);
-          acc[4 * c4 + 3] = fmaf(p, v.w, acc[4 * c4 + 3]);
-        }
-      }
-    }
-  }
+  float l;
+  kwalk_fma(theta, phiT + b * phi_bs, gT + b * g_bs, k_len, active, kv, acc, l);
 
   if (active) {
     const float inv = 1.f / l;
-    T* o = outT + (long long)b * kCg * q_len;
+    float* o = outT + (long long)b * kCg * q_len;
 #pragma unroll
-    for (int c = 0; c < kCg; ++c) {
-      o[(long long)c * q_len + q] = from_f32<T>(acc[c] * inv);
-    }
+    for (int c = 0; c < kCg; ++c) o[(long long)c * q_len + q] = acc[c] * inv;
   }
 }
 
@@ -176,15 +134,19 @@ extern "C" int attention_fwd(const void* thetaT, const void* phiT, const void* g
                              int dtype, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((q_len + kThreads - 1) / kThreads, batch);
+  const dim3 grid((q_len + kQb - 1) / kQb, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    attention_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(thetaT), static_cast<const __nv_bfloat16*>(phiT),
-        static_cast<const __nv_bfloat16*>(gT), static_cast<__nv_bfloat16*>(outT), q_len,
-        k_len, theta_bs, phi_bs, g_bs);
+    // 16-byte copies where the rows allow them, element by element otherwise
+    const int vec_k = k_len % 8 == 0 && aligned16(phiT) && aligned16(gT) && phi_bs % 8 == 0 &&
+                      g_bs % 8 == 0;
+    const int vec_q = q_len % 8 == 0 && aligned16(outT);
+    attention_fwd_mma_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const bf16*>(thetaT), static_cast<const bf16*>(phiT),
+        static_cast<const bf16*>(gT), static_cast<bf16*>(outT), q_len, k_len, theta_bs, phi_bs,
+        g_bs, vec_k, vec_q);
   } else if (dtype == 0) {
-    attention_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+    attention_fwd_fma_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(thetaT), static_cast<const float*>(phiT),
         static_cast<const float*>(gT), static_cast<float*>(outT), q_len, k_len, theta_bs,
         phi_bs, g_bs);
@@ -198,3 +160,4 @@ extern "C" int attention_fwd(const void* thetaT, const void* phiT, const void* g
 // blocking uses the same ones.
 extern "C" int attention_fwd_key_tile() { return kKt; }
 extern "C" int attention_fwd_key_chunk() { return kKs; }
+extern "C" int attention_fwd_warp_queries() { return kWarpQ; }

@@ -3,9 +3,11 @@
 Port of the core of scrabblegan_tpu/kernels/attention.py: the Pallas TPU
 kernels `_attention_kernel` (through `_pallas_forward`) and
 `_attention_bwd_kernel` (through `_pallas_backward`) become the sm_90a CUDA
-kernels in `scrabblegan_torch/csrc/attention_fwd.cu` and `attention_bwd.cu`,
-joined by the autograd Function `AttentionCore` as JAX joins them by the
-custom VJP `_attention_op`. The operands are channel-packed as there:
+kernels in `scrabblegan_torch/csrc/attention_fwd.cu` (its walk over the keys
+in `csrc/attention_mma.cuh`: on the tensor cores for bfloat16 operands, on
+the CUDA cores for float32) and `attention_bwd.cu`, joined by the autograd
+Function `AttentionCore` as JAX joins them by the custom VJP `_attention_op`.
+The operands are channel-packed as there:
 thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) -> outT (B, Cg, Q), with
 
     outT[b, :, q] = sum_k softmax_k(thetaT[b, :, q] . phiT[b, :, k]) gT[b, :, k]
@@ -27,7 +29,9 @@ from scrabblegan_torch.kernels.build import load_library
 
 LOG2E = 1.4426950408889634
 KERNEL_CA, KERNEL_CG = 8, 32  # the channel counts the kernel is written for
-KEY_TILE, KEY_CHUNK = 128, 32  # csrc/attention_fwd.cu: kKt keys a tile, kKs a chunk
+KEY_TILE, KEY_CHUNK = 128, 32  # csrc/attention_mma.cuh: kKt keys a tile, kKs a chunk
+WARP_QUERIES = 32  # csrc/attention_mma.cuh: kWarpQ queries a warp on the tensor cores
+MAX_SLACK = 8.0  # csrc/attention_mma.cuh: kSlack, log2 units the running max may lag by
 BWD_TILE = 128  # csrc/attention_bwd.cu: kTile rows a shared-memory tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,25 +54,44 @@ def attention_tiled_emulation(thetaT: torch.Tensor, phiT: torch.Tensor,
                               key_chunk: int = KEY_CHUNK) -> torch.Tensor:
     """The CUDA kernel's algorithm in plain torch, for testing it on the CPU.
 
-    As the kernel does: theta in float32 premultiplied by log2(e); K walked in
-    tiles of `key_tile` keys, zero-filled past the end; inside a tile, chunks
-    of `key_chunk` scores, with keys past the end masked to -inf; an online
-    softmax in base 2 whose running max moves once per chunk; one division by
-    the running sum at the end."""
-    theta = thetaT.float().transpose(1, 2) * LOG2E  # (B, Q, Ca)
-    out = online_softmax_emulation(theta, phiT, gT, key_tile, key_chunk)
+    As csrc/attention_fwd.cu does around the K walk of `online_softmax_emulation`:
+    bfloat16 operands hand theta over as it is and the walk scales the float32
+    scores by log2(e); float32 operands premultiply theta by log2(e). One
+    division by the running sum at the end, then the cast to the input dtype."""
+    theta = thetaT.float().transpose(1, 2)  # (B, Q, Ca)
+    log2_scores = thetaT.dtype == torch.float32
+    if log2_scores:
+        theta = theta * LOG2E
+    out = online_softmax_emulation(theta, phiT, gT, log2_scores, key_tile, key_chunk)
     return out.transpose(1, 2).to(thetaT.dtype)
 
 
 def online_softmax_emulation(theta: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
-                             key_tile: int = KEY_TILE, key_chunk: int = KEY_CHUNK
-                             ) -> torch.Tensor:
-    """The K walk of csrc/attention_fwd.cu and csrc/fused_block_fwd.cu:
-    theta (B, Q, Ca) float32 in log2 units -> (B, Q, Cg) float32, divided by
-    the running sum."""
+                             log2_scores: bool, key_tile: int = KEY_TILE,
+                             key_chunk: int = KEY_CHUNK) -> torch.Tensor:
+    """The K walk of csrc/attention_mma.cuh, which csrc/attention_fwd.cu and
+    csrc/fused_block_fwd.cu share: theta (B, Q, Ca) float32 -> (B, Q, Cg)
+    float32, divided by the running sum. `log2_scores` says that log2(e) is
+    already folded into theta; else the float32 scores are scaled.
+
+    Both walks take K in tiles of `key_tile` keys, zero past the end, and
+    inside a tile chunks of `key_chunk` scores with keys past the end masked
+    to -inf; the running max moves at most once per chunk and the sums are
+    rescaled when it does; the running sum adds the unrounded float32
+    probabilities; the value product accumulates in float32.
+    - `kwalk_fma` (float32 phiT and gT): a row's max moves whenever its
+      chunk's max exceeds it.
+    - `kwalk_mma` (bfloat16, on the tensor cores): the max moves only when
+      some row among the warp's `WARP_QUERIES` sees a score more than
+      `MAX_SLACK` log2 units above its own, and then every row of the warp
+      takes the larger of its max and its chunk's; the probabilities are
+      rounded to bfloat16 before the value product, as its operands are."""
     b, q, ca = theta.shape
     cg, k = gT.shape[1], gT.shape[2]
-    m = torch.full((b, q, 1), float("-inf"))
+    unit = 1.0 if log2_scores else LOG2E  # log2 units per unit of score
+    on_tensor_cores = phiT.dtype == torch.bfloat16
+    slack = MAX_SLACK / unit if on_tensor_cores else 0.0
+    m = torch.full((b, q, 1), float("-inf"))  # in the scores' own units
     l = torch.zeros(b, q, 1)
     acc = torch.zeros(b, q, cg)
     for k0 in range(0, k, key_tile):
@@ -80,13 +103,28 @@ def online_softmax_emulation(theta: torch.Tensor, phiT: torch.Tensor, gT: torch.
         for j0 in range(0, kn, key_chunk):
             s = theta @ phi_t[..., j0:j0 + key_chunk]  # (B, Q, chunk)
             s = s.masked_fill(torch.arange(j0, j0 + key_chunk) >= kn, float("-inf"))
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            scale = torch.exp2(m - m_new)  # 0 on the first chunk, 1 if the max held
-            p = torch.exp2(s - m_new)
+            cmax = s.amax(-1, keepdim=True)
+            moved = cmax > m + slack
+            if on_tensor_cores:
+                moved = _any_row_of_the_warp(moved)
+            m_new = torch.where(moved, torch.maximum(m, cmax), m)
+            scale = torch.exp2((m - m_new) * unit)  # 0 on the first chunk, 1 if the max held
+            p = torch.exp2(s * unit - m_new * unit)
             l = l * scale + p.sum(-1, keepdim=True)
+            if on_tensor_cores:
+                p = p.bfloat16().float()
             acc = acc * scale + p @ g_t[..., j0:j0 + key_chunk].transpose(1, 2)
             m = m_new
     return acc * (1.0 / l)
+
+
+def _any_row_of_the_warp(moved: torch.Tensor) -> torch.Tensor:
+    """moved (B, Q, 1) bool -> the same shape: true for every query whose
+    warp (WARP_QUERIES consecutive queries, the last warp ragged) holds one."""
+    b, q, _ = moved.shape
+    pad = -q % WARP_QUERIES
+    warps = torch.nn.functional.pad(moved, (0, 0, 0, pad)).view(b, -1, WARP_QUERIES)
+    return warps.any(-1, keepdim=True).expand_as(warps).reshape(b, -1, 1)[:, :q]
 
 
 def attention_backward_reference(thetaT: torch.Tensor, phiT: torch.Tensor,

@@ -4,8 +4,8 @@
 sm_90a (one nvcc per source, in parallel) and links them into one shared
 library with a plain C interface, under
 `build/scrabblegan_torch/` at the root of the checkout, named by a hash of the
-sources and the flags, so an edit rebuilds and an unchanged tree reuses the
-library. It needs no PyTorch headers, so a build takes seconds. A missing
+sources, the headers (`csrc/*.cuh`) and the flags, so an edit rebuilds and an
+unchanged tree reuses the library. It needs no PyTorch headers, so a build takes seconds. A missing
 nvcc or a failed build raises; nothing but the repository's sources is built
 or loaded.
 """
@@ -44,7 +44,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.attention_bwd.restype = i
     lib.fused_block_fwd.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
     lib.fused_block_fwd.restype = i
-    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk", "attention_bwd_tile",
+    for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk",
+                 "attention_fwd_warp_queries", "attention_bwd_tile",
                  "fused_block_fwd_channels", "fused_block_fwd_key_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
@@ -83,7 +84,7 @@ def load_library() -> ctypes.CDLL:
     nvcc = find_nvcc()
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):  # a header's edit rebuilds too
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libscrabblegan_kernels_{digest.hexdigest()[:16]}.so"

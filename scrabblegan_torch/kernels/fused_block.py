@@ -61,15 +61,16 @@ def fused_block_emulation(x: torch.Tensor, w_theta: torch.Tensor, phiT: torch.Te
 
     As the kernel does: log2(e) folded into w_theta in float32 and rounded to
     the working dtype (JAX `_fused_block_forward`); theta accumulated in
-    float32 and rounded to the working dtype; the K walk of the attention
-    forward kernel (`online_softmax_emulation`); the attention output rounded
+    float32 and rounded to the working dtype; the K walk shared with the
+    attention forward kernel (`online_softmax_emulation`, the scores already
+    in log2 units); the attention output rounded
     to the working dtype; the out projection in float32, rounded; the
     residual added in float32 and rounded."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).float()  # noqa: E731
     wt = rnd(w_theta.float() * LOG2E)
     theta = rnd(torch.matmul(x.float().transpose(1, 2), wt))             # (B, N, Ca)
-    attn = rnd(online_softmax_emulation(theta, phiT, gT))                # (B, N, Cg)
+    attn = rnd(online_softmax_emulation(theta, phiT, gT, log2_scores=True))  # (B, N, Cg)
     out = rnd(torch.matmul(attn, w_out_s.float()))                       # (B, N, C)
     return (out.transpose(1, 2) + x.float()).to(dt)
 

@@ -2,9 +2,11 @@
 package (CPU), and the checks around the CUDA kernel's wrapper.
 
 The CUDA kernel cannot run here; `attention_tiled_emulation` runs its
-algorithm (key tiles, chunked online softmax, deferred division) in plain
-torch and is held to JAX at a shape where K spans many tiles. The kernel
-itself is held to the plain version on the card by chip_smoke.py.
+algorithm (key tiles, chunked online softmax with a lazily moving max,
+bfloat16 probabilities on the tensor-core path, deferred division) in plain
+torch and is held to JAX at shapes where K spans many tiles and at the
+staging's edges. The kernel itself is held to the plain version on the card
+by chip_smoke.py.
 
 Tolerances: 1e-4 in float32 and 2e-2 in bfloat16, those of the JAX kernel's
 own tests (tests/test_kernels.py)."""
@@ -69,6 +71,12 @@ def test_plain_core_matches_pallas_and_xla(q, k, dtype):
     (1280, 320, "bfloat16"),
     (300, 75, "float32"),      # ragged: Q not a multiple of 128, K one partial tile
     (640, 200, "float32"),     # K past a tile edge: a partial second tile
+    (5120, 1280, "bfloat16"),  # the tensor-core walk over ten key tiles
+    (640, 75, "bfloat16"),     # K not a multiple of 8: staged element by element
+    (640, 129, "bfloat16"),    # K one past a tile: a second tile of one key
+    (640, 136, "bfloat16"),    # K a multiple of 8 just past a tile
+    (72, 136, "bfloat16"),     # Q not a multiple of a warp's 32 rows
+    (300, 75, "bfloat16"),     # both ragged
 ])
 def test_kernel_tiling_emulation_matches_jax(q, k, dtype):
     (jt, jp, jg), (tt, tp, tg) = packed_operands(1, 2, q, k, dtype)
@@ -77,12 +85,36 @@ def test_kernel_tiling_emulation_matches_jax(q, k, dtype):
     np.testing.assert_allclose(as_np(got), as_np(xla_packed(jt, jp, jg)), rtol=tol, atol=tol)
 
 
+CSRC = Path(attention.__file__).parents[1] / "csrc"
+
+
 def test_emulation_uses_the_kernels_tiles():
-    src = (Path(attention.__file__).parents[1] / "csrc" / "attention_fwd.cu").read_text()
-    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))  # noqa: E731
-    assert re.search(r"constexpr int kKt = kThreads;", src)
-    assert (const("kThreads"), const("kKs")) == (attention.KEY_TILE, attention.KEY_CHUNK)
-    assert (const("kCa"), const("kCg")) == (attention.KERNEL_CA, attention.KERNEL_CG)
+    src = (CSRC / "attention_mma.cuh").read_text()
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = ([\d.]+)f?;", src).group(1)
+
+    assert (int(const("kKt")), int(const("kKs"))) == (attention.KEY_TILE, attention.KEY_CHUNK)
+    assert (int(const("kCa")), int(const("kCg"))) == (attention.KERNEL_CA, attention.KERNEL_CG)
+    assert re.search(r"constexpr int kWarpQ = 16 \* kMt;", src)
+    assert 16 * int(const("kMt")) == attention.WARP_QUERIES
+    assert float(const("kSlack")) == attention.MAX_SLACK
+    assert int(const("kQb")) == int(const("kThreads")) == attention.KEY_TILE
+
+
+def test_both_forward_kernels_share_one_k_walk():
+    """attention_fwd.cu and fused_block_fwd.cu include the shared header, which
+    alone holds the walk over the keys: the tensor-core instructions, the
+    exponentials and the running max appear in no .cu file."""
+    header = (CSRC / "attention_mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k8" in header and "mma.sync.aligned.m16n8k16" in header
+    assert len(re.findall(r"void kwalk_(?:mma|fma)\(", header)) == 2
+    for name, walks in (("attention_fwd.cu", 2), ("fused_block_fwd.cu", 2)):
+        src = (CSRC / name).read_text()
+        code = "\n".join(ln for ln in src.splitlines() if not ln.lstrip().startswith("//"))
+        assert '#include "attention_mma.cuh"' in code
+        assert len(re.findall(r"\bkwalk_(?:mma<\w+>|fma)\(", code)) == walks
+        for walk_only in ("exp2f", "ex2(", "asm", "INFINITY", "fmaxf", "__shfl"):
+            assert walk_only not in code, (name, walk_only)
 
 
 def test_unpacked_entry_matches_jax():
@@ -139,6 +171,16 @@ def test_wrapper_checks_and_cpu_dispatch():
         attention.nonlocal_attention_packed(tt, tp[:, :, :16], tg)
     with pytest.raises(ValueError):
         attention.nonlocal_attention_packed(tt[:, :, :0], tp, tg)
+
+
+def test_kernel_bench_needs_a_card_and_covers_the_staging_edges(monkeypatch):
+    from scrabblegan_torch.kernels import bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.main([])
+    ks = [k for _, k in bench.SHAPES]
+    assert any(k % 8 for k in ks) and attention.KEY_TILE + 8 in ks and attention.KEY_TILE + 1 in ks
+    assert any(q % attention.WARP_QUERIES for q, _ in bench.SHAPES)
 
 
 def test_cuda_requests_raise_without_a_card(monkeypatch, tmp_path):

@@ -74,6 +74,10 @@ def port_layout(a) -> np.ndarray:
     (512, 128, "float32", 5e-4),
     (512, 128, "bfloat16", 1e-1),
     (300, 75, "float32", 5e-4),  # ragged: N not a multiple of the 128-query tile
+    (640, 75, "bfloat16", 1e-1),  # K not a multiple of 8: staged element by element
+    (256, 129, "bfloat16", 1e-1),  # K one past a key tile
+    (256, 136, "float32", 5e-4),  # K a multiple of 8 just past a key tile
+    (72, 136, "bfloat16", 1e-1),  # N not a multiple of a warp's 32 rows
 ])
 def test_emulation_matches_the_interpreted_pallas_kernel(n, k, dtype, tol):
     jops, tops = block_operands(0, 2, n, k, dtype)
@@ -91,12 +95,14 @@ def test_plain_version_matches_the_jax_composition():
 
 
 def test_emulation_uses_the_kernels_widths_and_tiles():
-    src = (Path(fused_block.__file__).parents[1] / "csrc" / "fused_block_fwd.cu").read_text()
+    csrc = Path(fused_block.__file__).parents[1] / "csrc"
+    src = (csrc / "fused_block_fwd.cu").read_text() + (csrc / "attention_mma.cuh").read_text()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))  # noqa: E731
-    assert re.search(r"constexpr int kKt = kThreads;", src)
     assert (const("kC"), const("kCa"), const("kCg")) == (
         fused_block.KERNEL_C, fused_block.KERNEL_CA, fused_block.KERNEL_CG)
-    assert (const("kThreads"), const("kKs")) == (attention.KEY_TILE, attention.KEY_CHUNK)
+    assert (const("kKt"), const("kKs")) == (attention.KEY_TILE, attention.KEY_CHUNK)
+    assert 16 * const("kMt") == attention.WARP_QUERIES
+    assert "kwalk_mma<true>" in src  # log2(e) is folded into the theta weight, as emulated
 
 
 def test_gradients_in_all_six_arguments_match_jax():
