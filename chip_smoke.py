@@ -27,12 +27,15 @@ each or more:
    profiler trace of 3 forwards at len 5 and 10 (device busy share, ms a
    forward by kernel class), each printed with the card's name and power
    limit;
-7. the backward kernel vs the plain backward at every shape the step runs
+7. the backward kernels vs the plain backward at every shape the step runs
    (G's B3 and D/W's B1 at L = 1, 5, 10, the style images' (1280, 320), a
-   ragged (300, 75)), batch 4, float32 within 2e-4 (TF32 off) and bfloat16
-   within 2e-2; two backward runs bitwise equal; at the B1 shapes and the
-   ragged one, in float32 and bfloat16, the autograd Function (both kernels):
-   its output vs the plain core, its grads vs autograd through the plain core;
+   ragged (300, 75)), batch 4, and at shapes that stress the staging and the
+   edges (K not a multiple of 8, K one past a key tile, Q not a multiple of
+   a warp's 16 rows, batch 1, a batch large enough to need no split), float32
+   within 2e-4 (TF32 off) and bfloat16 within 2e-2; two backward runs bitwise
+   equal at every shape; at the B1 shapes and the ragged one, in float32 and
+   bfloat16, the autograd Function (both kernels): its output vs the plain
+   core, its grads vs autograd through the plain core;
 8. the train step at batch 16 for configs/recommended.json (padded) and for
    the JAX bench's bucketed len-5 config, from seeded flax-layout weights
    (attention sigma != 0): 10 steps each through the kernels, finite
@@ -42,11 +45,17 @@ each or more:
    one float32 step at batch 2, len 2 on the card against the CPU port;
 9. the train CLI (3 steps, export G) and the inference CLI serving the
    export with noise z;
-10. times: the backward kernel vs the plain backward (batch 16 and 256), the
-   train steps/s on the kernels and on the plain cores (four turns of 50
-   steps; window means and the median of per-step times), and a profiler
-   trace of 5 steps (device busy share, kernel launches a step, top kernel
-   classes), each printed with the card's name and power limit.
+10. times: the backward kernels (D/W B1 in bfloat16 and G B3 in float32 at
+   batch 16 and 256, G B3 in bfloat16 at batch 256 and 1024; len 5 and 10)
+   by CUDA events around eager calls and, from a profiler trace, on the
+   device alone per kernel, with the plan's grids, beside the plain
+   backward, the library's backward, the bound and the floor of as many
+   empty launches; the train steps/s on the kernels and on the plain cores
+   (four turns of 50 steps; window means and the median of per-step times),
+   and a profiler trace of 5 steps (device busy share, kernel launches a
+   step, top kernel classes, the attention kernels' share, backward calls
+   whose cotangent had to be copied), each printed with the card's name and
+   power limit.
 
 The 'fused' attention dataflow (the whole non-local block as one kernel,
 csrc/fused_block_fwd.cu) adds four phases, each run after the phase of the
@@ -251,6 +260,15 @@ def bwd_shapes() -> list[tuple[str, int, int]]:
     return shapes + [("style images", 1280, 320), ("ragged", 300, 75)]
 
 
+def bwd_edge_shapes() -> list[tuple[str, int, int, int]]:
+    """(what, batch, Q, K) that stress the backward's staging, edges and plan."""
+    from scrabblegan_torch.kernels.attention import KEY_TILE
+    return [("K not a multiple of 8", 4, 640, 75), ("K a tile and 8", 4, 640, KEY_TILE + 8),
+            ("K one past a tile", 4, 72, KEY_TILE + 1), ("Q not a multiple of 16", 4, 72, 40),
+            ("Q not a multiple of 8", 4, 300, 160), ("batch 1", 1, 640, 160),
+            ("no split", 1024, 256, 96)]
+
+
 def bwd_operands(batch: int, q: int, k: int, dtype, gen: torch.Generator):
     return [torch.randn(batch, c, n, generator=gen, device="cuda").to(dtype)
             for c, n in ((8, q), (8, k), (32, k), (32, q))]
@@ -260,8 +278,8 @@ def check_backward_kernel(attention, gen) -> float:
     """Phase 7; returns the largest error against the plain backward."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for what, q, k in bwd_shapes():
-            ops = bwd_operands(4, q, k, dtype, gen)
+        for what, batch, q, k in [(w, 4, q, k) for w, q, k in bwd_shapes()] + bwd_edge_shapes():
+            ops = bwd_operands(batch, q, k, dtype, gen)
             got = attention._launch_backward(*ops)
             again = attention._launch_backward(*ops)
             ref = attention.attention_backward_reference(*ops)
@@ -270,8 +288,9 @@ def check_backward_kernel(attention, gen) -> float:
                     for name, g, r in zip(("dtheta", "dphi", "dg"), got, ref)]
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"backward at {what} {dtype}: two runs differ")
-            say("7 backward-vs-plain", what=what, dtype=str(dtype), q=q, k=k, batch=4,
-                max_abs_err=errs, tol=BWD_TOL[dtype], deterministic=True)
+            say("7 backward-vs-plain", what=what, dtype=str(dtype), q=q, k=k, batch=batch,
+                max_abs_err=errs, tol=BWD_TOL[dtype], deterministic=True,
+                plan=attention.backward_plan(batch, q, k, sm_count()))
             worst = max(worst, *errs)
     # the autograd Function (forward and backward kernels) at D's and W's B1
     # shapes: its output against the plain core in the same dtype, its grads
@@ -457,22 +476,44 @@ def check_train_cli(attention, train_main, infer_main) -> None:
         served=str(out_path.relative_to(ROOT)), shape=served.shape)
 
 
-def time_backward(attention, gen, card: str) -> dict:
-    """Phase 10: backward kernel vs plain backward; returns ms at G B3 len 5,
-    batch 16, float32 (the train step's shape)."""
+def time_backward(attention, lib, gen, card: str) -> dict:
+    """Phase 10: the backward kernels at the step's shapes and at large
+    batches; returns {(what, dtype, batch): the printed row}. kernel_ms and
+    library_ms are CUDA events around eager calls; device_ms is the kernels'
+    own time on the card; plain_ms is at `plain_batch`, which bounds the
+    plain version's (B, Q, K) matrices."""
+    from scrabblegan_torch.kernels.bench import (backward_grids, device_ms_by_kernel,
+                                                 library_backward_ms)
+    stream = torch.cuda.current_stream().cuda_stream
+    floor = {}
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        floor[dtype] = cuda_ms(lambda: lib.attention_bwd_floor(code, 0, stream), 200)
+        say("10 time backward floor", card=card, dtype=str(dtype),
+            empty_launches=4 if code == 0 else 3, ms=floor[dtype])
     out = {}
-    for what, q, k, dtype in (("G B3 len 5", 2560, 640, torch.float32),
-                              ("G B3 len 10", 5120, 1280, torch.float32),
-                              ("D B1 len 5", 640, 160, torch.bfloat16)):
-        for batch in (TRAIN_BATCH, 256):
-            ops = bwd_operands(batch, q, k, dtype, gen)
-            kernel_ms = cuda_ms(lambda: attention._launch_backward(*ops), 10)
-            plain_ms = cuda_ms(lambda: attention.attention_backward_reference(*ops), 5)
-            say("10 time backward", card=card, what=what, q=q, k=k, batch=batch,
-                dtype=str(dtype), tf32=False, kernel_ms=kernel_ms, plain_ms=plain_ms)
-            out[(what, batch)] = (kernel_ms, plain_ms)
-            del ops
-            torch.cuda.empty_cache()
+    for what, q1, k1, dtype, batches in (("D/W B1", 128, 32, torch.bfloat16, (TRAIN_BATCH, 256)),
+                                         ("G B3", 512, 128, torch.float32, (TRAIN_BATCH, 256)),
+                                         ("G B3", 512, 128, torch.bfloat16, (256, 1024))):
+        for n in LENGTHS:
+            q, k = q1 * n, k1 * n
+            for batch in batches:
+                ops = bwd_operands(batch, q, k, dtype, gen)
+                kernel_ms = cuda_ms(lambda: attention._launch_backward(*ops), 10)
+                by_kernel = device_ms_by_kernel(lambda: attention._launch_backward(*ops))
+                small = max(1, min(batch, 2560 * 640 * 64 // (q * k)))
+                plain_ms = cuda_ms(lambda: attention.attention_backward_reference(
+                    *(t[:small] for t in ops)), 5)
+                bound_ms, bound_by = core_bound(batch, q, k, dtype, backward=True)
+                row = dict(
+                    what=f"{what} len {n}", q=q, k=k, batch=batch, dtype=str(dtype), tf32=False,
+                    kernel_ms=kernel_ms, device_ms=sum(by_kernel.values()),
+                    device_ms_by_kernel=by_kernel, plain_ms=plain_ms, plain_batch=small,
+                    library_ms=library_backward_ms(ops, 10), bound_ms=bound_ms,
+                    bound_by=bound_by, floor_ms=floor[dtype], **backward_grids(batch, q, k))
+                say("10 time backward", card=card, **row)
+                out[(f"{what} len {n}", dtype, batch)] = row
+                del ops
+                torch.cuda.empty_cache()
     return out
 
 
@@ -591,11 +632,17 @@ def profile_generator(g, feeds: dict, card: str) -> None:
                                             for k, (t, c) in top])
 
 
+def attention_module():
+    from scrabblegan_torch.kernels import attention
+    return attention
+
+
 def profile_steps(core: str, state, step, batches: list, card: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     step(state, batches[0])
     torch.cuda.synchronize()
+    copies_before = attention_module().bwd_dout_copies
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches:
@@ -603,6 +650,7 @@ def profile_steps(core: str, state, step, batches: list, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = len(batches)
+    dout_copies = attention_module().bwd_dout_copies - copies_before
     kernels, busy, span, by_name = device_activity(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     attn = {k: (t / n / 1e3, c / n) for k, (t, c) in by_name.items() if "attention_" in k}
@@ -613,6 +661,8 @@ def profile_steps(core: str, state, step, batches: list, card: str) -> None:
         steps=n, wall_ms_per_step=1e3 * wall / n, device_busy_share=busy / span,
         device_busy_ms_per_step=busy / n / 1e3, kernels_per_step=len(kernels) / n,
         attention_kernels_ms_and_count_per_step=attn,
+        attention_ms_per_step=sum(t for t, _ in attn.values()),
+        backward_calls_that_copied_dout_per_step=dout_copies / n,
         top_kernels_ms_per_step=[(k[:90], t / n / 1e3, c / n) for k, (t, c) in top])
 
 
@@ -640,9 +690,13 @@ def dataflow(name: str):
 
 def reset_counts(*modules) -> None:
     for m in modules:
-        for name in ("launches", "bwd_launches"):
+        for name in ("launches", "bwd_launches", "bwd_dout_copies"):
             if hasattr(m, name):
                 setattr(m, name, 0)
+
+
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 @functools.cache
@@ -658,7 +712,7 @@ def bound(bytes_moved: float, flops: float, exps: float, dtype) -> tuple[float, 
     """(ms, 'bytes', 'operations' or 'exponentials'): the largest of the three
     least times. The exponentials run on the special-function units, 16 a
     clock on each SM, at the largest SM clock."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = sm_count()
     times = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
              "operations": flops / PEAK_FLOPS[dtype] * 1e3,
              "exponentials": exps / (EXP_PER_CLOCK_PER_SM * sms * sm_clock_hz()) * 1e3}
@@ -763,7 +817,8 @@ def serve_fused(g, feeds: dict, images: dict, attention, fused_block) -> int:
 
 def time_fused(g, feeds: dict, fused_block, attention, gen, card: str) -> dict:
     """Phase 12, times: G's images/s per dataflow in turns; the fused kernel,
-    its plain version and the forward core's library yardstick at B3."""
+    its plain version and the forward core's library yardstick at B3 (the
+    library's backward is timed in phase 10)."""
     per = {"nhwc1": {n: [] for n in LENGTHS}, "fused": {n: [] for n in LENGTHS}}
     with torch.inference_mode():
         for turn in ("nhwc1", "fused", "fused", "nhwc1"):
@@ -798,14 +853,6 @@ def time_fused(g, feeds: dict, fused_block, attention, gen, card: str) -> dict:
         say("12 time library attention", card=card, call="F.scaled_dot_product_attention",
             dtype="bfloat16", batch=BATCH, q=2560, k=640, ms=out["library_fwd"])
         del thetaT, phiT, gT, q_, k_, v_
-    q_, k_, v_, d_ = (t.transpose(1, 2).unsqueeze(1).contiguous()
-                      for t in bwd_operands(TRAIN_BATCH, 2560, 640, torch.float32, gen))
-    q_, k_, v_ = (t.requires_grad_() for t in (q_, k_, v_))
-    o_ = torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, scale=1.0)
-    out["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(o_, (q_, k_, v_), d_,
-                                                             retain_graph=True), 10)
-    say("12 time library attention backward", card=card, dtype="float32", batch=TRAIN_BATCH,
-        q=2560, k=640, ms=out["library_bwd"])
     return out
 
 
@@ -942,11 +989,20 @@ def main() -> int:
     lib = build.load_library()
     build_s = time.perf_counter() - t0
     tiles = (lib.attention_fwd_key_tile(), lib.attention_fwd_key_chunk(),
-             lib.attention_fwd_warp_queries(), lib.attention_bwd_tile(),
-             lib.fused_block_fwd_key_tile(), lib.fused_block_fwd_channels())
+             lib.attention_fwd_warp_queries(), lib.fused_block_fwd_key_tile(),
+             lib.fused_block_fwd_channels(), lib.attention_bwd_warps(),
+             lib.attention_bwd_warp_rows(), lib.attention_bwd_keys(),
+             lib.attention_bwd_query_tile(), lib.attention_bwd_stats_blocks_per_sm(),
+             lib.attention_bwd_grads_blocks_per_sm(),
+             lib.attention_bwd_parts(0), lib.attention_bwd_reg_parts(0),
+             lib.attention_bwd_parts(1), lib.attention_bwd_reg_parts(1))
     if tiles != (attention.KEY_TILE, attention.KEY_CHUNK, attention.WARP_QUERIES,
-                 attention.BWD_TILE, attention.KEY_TILE, fused_block.KERNEL_C):
-        raise AssertionError(f"kernel tiles {tiles} differ from the CPU emulations'")
+                 attention.KEY_TILE, fused_block.KERNEL_C, attention.BWD_WARPS,
+                 attention.BWD_WARP_ROWS, attention.BWD_KEYS, attention.BWD_QUERY_TILE,
+                 attention.BWD_STATS_BLOCKS_PER_SM, attention.BWD_GRADS_BLOCKS_PER_SM,
+                 attention.BWD_PARTS[torch.float32], attention.BWD_REG_PARTS[torch.float32],
+                 attention.BWD_PARTS[torch.bfloat16], attention.BWD_REG_PARTS[torch.bfloat16]):
+        raise AssertionError(f"kernel constants {tiles} differ from the CPU emulations'")
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
     say("2 build", seconds=build_s, ptxas=ptxas)
@@ -1093,12 +1149,13 @@ def main() -> int:
     fused_cli = check_workdir_cli(attention, fused_block, train_main, infer_main, load_config)
 
     # 10. times
-    bwd_ms = time_backward(attention, gen, card)
+    bwd_rows = time_backward(attention, lib, gen, card)
     time_train_steps(runs, make_train_step, card)
     profile_train_steps(runs, make_train_step, card)
 
     kernel_ms, plain_ms = core_ms[5]  # the same shape: batch 1024
-    bwd_kernel_ms, bwd_plain_ms = bwd_ms[("G B3 len 5", TRAIN_BATCH)]
+    bwd_row = bwd_rows[("G B3 len 5", torch.float32, TRAIN_BATCH)]
+    bwd_b1 = bwd_rows[("D/W B1 len 5", torch.bfloat16, TRAIN_BATCH)]
     fused_kernel_ms, fused_plain_ms = fused_ms[5]
     rows = [
         {"name": "attention_fwd", "route": "cuda",
@@ -1114,10 +1171,12 @@ def main() -> int:
          "source": "scrabblegan_torch/csrc/attention_bwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:195",
          "launches": train_launches["bwd"], "max_abs_err": bwd_err,
-         "ms": bwd_kernel_ms, "plain_ms": bwd_plain_ms, "shape": "G B3 len 5, batch 16, f32",
-         **dict(zip(("bound_ms", "bound_by"), core_bound(TRAIN_BATCH, 2560, 640, torch.float32,
-                                                         backward=True))),
-         "library_ms": fused_ms["library_bwd"]},
+         "shape": "G B3 len 5, batch 16, f32", "ms": bwd_row["kernel_ms"],
+         **{key: bwd_row[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "device_ms", "floor_ms")},
+         "d_w_b1_len_5_batch_16_bf16": {key: bwd_b1[key] for key in (
+             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+             "floor_ms")}},
         {"name": "fused_block_fwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/fused_block_fwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:333",

@@ -13,329 +13,726 @@
 //
 // Operands are channel-packed as in the forward: thetaT (B, 8, Q), phiT
 // (B, 8, K), gT (B, 32, K), doutT (B, 32, Q); the grads have the operands'
-// shapes and dtypes (float32 or bfloat16), the math is float32 throughout.
+// shapes and dtypes (float32 or bfloat16).
 //
-// Design. The TPU kernel recomputes A per query block and accumulates dphi /
-// dg in VMEM across a sequential grid axis. Hopper's blocks run in parallel
-// and in no order, so that accumulation does not carry over; this design
-// splits the work in two launches, one thread per row, with no atomics, so
-// two runs give the same bits:
-// 1. query side, grid (ceil(Q / 128), B): one thread per query. Pass 1 walks
-//    the keys in shared-memory tiles of 128 (phi and g as float32, key-major)
-//    with an online base-2 softmax that keeps the running max m, the sum l
-//    and t = sum_k e_k dA_k, so that c = t / l. Pass 2 walks the keys again
-//    and forms dtheta from A = exp2(s - lse), lse = m + log2(l). It writes
-//    dtheta and the per-row lse and c to float32 scratch (B, Q).
-// 2. key side, grid (ceil(K / 128), B): one thread per key, phi_k and g_k in
-//    registers. It walks the queries in shared-memory tiles of 128 (theta,
-//    dout, lse, c) and accumulates dphi_k and dg_k in registers, in query
-//    order.
-// Ragged Q and K edges are masked by loop bounds (a tile's rows past the end
-// are never read) and by the `active` test on the thread's own row.
+// What bounds it on this card. The work is 176 flops and one exponential a
+// (query, key) pair; at the train step's shapes (batch 16) a call is 1.6 M
+// pairs (D's and W's B1 at len 5) to 105 M (G's B3 at len 10), microseconds
+// of tensor-core time, so a call is bound by how many of the 132 SMs it
+// reaches and by its launches: on an H100 (700 W) 0.015 ms on the device for
+// the B1 call, where three empty launches take 0.009-0.016, and 0.20 ms for
+// G's float32 B3 call at len 5, whose products cost six mma each. At large
+// batches the gradient kernel issues about 155 instructions a warp for
+// 16 x 16 pairs (18 mma, 8 exp2, the two-part split of A and dS a third of
+// them) and runs at 2.4 ms for 1.68 G pairs (batch 1024, len 5, bf16), three
+// times the forward's walk. The TPU kernel walks query blocks on a
+// sequential grid axis and accumulates dphi and dg in VMEM; here blocks run
+// in parallel, so the sums across blocks are partial sums in float32 scratch,
+// added in a fixed order by a last small kernel: no float atomics, two runs
+// give the same bits.
 //
-// What bounds it: float32 FMAs on the CUDA cores. A (q, k) pair costs about
-// 8 + 32 FMAs and an exp2 in each query-side pass and 8 + 32 + 8 + 32 in the
-// key-side pass: ~250 flops, about 3x the forward's ~80. c_q could instead be
-// dout_q . out_q from a saved forward output, which would drop the query side's
-// first pass, at a small cost in bf16 accuracy (out would be stored in bf16);
-// moving the products onto the tensor cores (mma.sync / wgmma) is later work.
+// Design: every product on the tensor cores (mma.sync, bfloat16 operands,
+// float32 sums; fragments and staging from attention_mma.cuh), the scores and
+// dA evaluated twice a pair:
+// 1. `attention_bwd_stats_kernel`, queries as the M rows: lse_q (log2 units) and c_q.
+//    A warp owns 16 queries: theta and dout are its A fragments for the whole
+//    walk. K is staged channel-major in tiles of 128 keys, double-buffered
+//    with 16-byte cp.async, and walked in chunks of 32: S = theta . phi
+//    (m16n8k8) and dA = dout . g (two m16n8k16) stay in the accumulators.
+//    Each lane keeps its own running max (moved only when a score exceeds it
+//    by more than 8 log2 units, as in the forward), sum l and t = sum e dA
+//    for its columns of a row, so the walk needs no shuffle; the four lanes
+//    of a row, then the warps that split the keys, are merged at the end.
+//    `query_warps` of a block's four warps split its queries and the others
+//    the chunks of every tile, so the grid has B x Q / (16 query_warps)
+//    blocks: the host picks query_warps so that a small batch fills the card.
+// 2. `attention_bwd_grads_kernel`, keys as the M rows (S^T = phi^T theta), so that lse
+//    and c broadcast along columns and dphi and dg are plain accumulators: a
+//    block owns 64 keys, a warp 16 of them (phi and g are its A fragments),
+//    and walks `tiles_per_split` query tiles of 128 (theta, dout, lse, c
+//    staged as above) in steps of 16 queries. A^T = exp2(log2e s - lse) and
+//    dS^T = A^T (dA^T - c) are formed in the score accumulators' registers
+//    and become, rounded to bfloat16 parts, the A operand of dphi += dS^T
+//    theta and dg += A^T dout (the accumulator layout of m16n8 is the A
+//    layout of m16n8k16). dtheta needs dS with queries as rows: movmatrix
+//    transposes the 8x8 blocks in registers, and dS phi of the warp's 16 keys
+//    goes to shared memory, where the block's warps are summed in order into
+//    the key tile's partial dtheta (B x key tiles x 8 x Q float32). The grid
+//    is (key tiles, query splits, B); the host picks the split.
+// 3. `attention_bwd_reduce_kernel`: dtheta = sum over key tiles, dphi and dg = sum over
+//    query splits, in order, rounded once to the operands' dtype.
 //
-// The C entry launches both kernels on the caller's stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// Precision. The softmax statistics, c and every accumulator are float32.
+// A product's operands are bfloat16 numbers: a bfloat16 operand is one
+// (kParts = 1), a float32 operand is split into three whose sum is the
+// float32 value (kParts = 3: hi, the rounding of what hi leaves, and of what
+// both leave), and a product of two split operands is the sum of the six
+// mma of parts i, j with i + j < 3. Two parts (three mma) leave the grads
+// about 1e-4 (1 + |grad|) off the plain float32 backward, at the edge of the
+// 2e-4 tolerance; three parts leave 1e-5. (One TF32 pass is far off; 3xTF32
+// costs the same six-fold tensor time and has other fragment layouts.) A and
+// dS are float32 in registers and are split the same way (kRegParts): three
+// parts for float32 operands, two for bfloat16 ones, because dS rounded once
+// to bfloat16 leaves dtheta and dphi up to 3e-2 (1 + |grad|) off, beyond the
+// 2e-2 tolerance, and two parts 5e-3. A float32 call first writes its
+// operands' parts as bfloat16 planes (`attention_bwd_split_kernel`, rows padded to 8
+// columns so that 16-byte copies always apply), so kernels 1 and 2 read
+// bfloat16 planes whatever the dtype.
+//
+// Staging: 16-byte cp.async into rows padded by 8 bf16 where the rows are
+// aligned and the length a multiple of 8, element by element otherwise, chosen
+// in the C entry; columns past the end are zero, keys past the end are masked
+// to -inf (kernel 1) or are zero rows of phi (kernel 2), queries past the end
+// get lse = +inf, so A = 0.
+//
+// The C entry launches on the caller's stream, does not synchronise, allocates
+// nothing (the caller passes the scratch), and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kCa = 8;          // score channels (C / 8)
-constexpr int kCg = 32;         // value channels (C / 2)
-constexpr int kThreads = 128;   // one row per thread
-constexpr int kTile = kThreads; // rows staged per shared-memory tile
-constexpr int kKRow = kCa + kCg;          // key row: phi 0..7 | g 0..31
-constexpr int kQRow = kCa + kCg + 4;      // query row: theta | dout | lse, c, pad
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace attn;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kWarps = kThreads / 32;  // warps a block, both kernels
+constexpr int kRows = 16;              // rows of scores a warp owns; queries a step of kernel 2
+constexpr int kKeys = kWarps * kRows;  // keys a block of kernel 2 owns
+constexpr int kQt = kKt;               // queries per staged tile of kernel 2
+constexpr int kSlotRow = kQt + 4;      // floats a channel of a warp's dtheta slot: banks 8 t + g
+constexpr int kStatsBlocksPerSm = 2;   // blocks an SM the host's plan aims at: kernel 1,
+constexpr int kGradsBlocksPerSm = 8;   // kernel 2 (measured: 2, 4, 8, 16, 32 at the step's shapes)
+static_assert(kQt == kThreads, "a thread stages and sums one query of a tile");
+constexpr float kLowest = -1e30f;      // a running max before any key; finite, so never inf - inf
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// bfloat16 parts of an operand of type T, and of A and dS in registers
+template <typename T> struct Parts;
+template <> struct Parts<float> { static constexpr int kParts = 3, kRegParts = 3; };
+template <> struct Parts<bf16> { static constexpr int kParts = 1, kRegParts = 2; };
+
+// An operand as bfloat16 planes: element (part p, batch b, channel c, column
+// j) at ptr[p * ps + b * bs + c * rs + j]; a row has rs columns in memory.
+struct Src {
+  const bf16* ptr;
+  long long ps, bs;
+  int rs;
+  __device__ __forceinline__ const bf16* plane(int p, int b) const { return ptr + p * ps + b * bs; }
+};
+
+__device__ __forceinline__ uint32_t pack_if(bool ok, const bf16* lo, const bf16* hi) {
+  return ok ? pack_bf16(*lo, *hi) : 0u;
 }
 
-__device__ __forceinline__ float dot8(const float* a, const float4* b) {
-  const float4 b0 = b[0];
-  const float4 b1 = b[1];
-  float v = a[0] * b0.x;
-  v = fmaf(a[1], b0.y, v);
-  v = fmaf(a[2], b0.z, v);
-  v = fmaf(a[3], b0.w, v);
-  v = fmaf(a[4], b1.x, v);
-  v = fmaf(a[5], b1.y, v);
-  v = fmaf(a[6], b1.z, v);
-  v = fmaf(a[7], b1.w, v);
-  return v;
-}
-
-__device__ __forceinline__ float dot32(const float* a, const float4* b) {
-  float v = 0.f;
+// (x0, x1) as N bfloat16 pairs, part r into out[r][idx]
+template <int N>
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t (&out)[N][4], int idx) {
 #pragma unroll
-  for (int c4 = 0; c4 < kCg / 4; ++c4) {
-    const float4 w = b[c4];
-    v = fmaf(a[4 * c4 + 0], w.x, v);
-    v = fmaf(a[4 * c4 + 1], w.y, v);
-    v = fmaf(a[4 * c4 + 2], w.z, v);
-    v = fmaf(a[4 * c4 + 3], w.w, v);
+  for (int r = 0; r < N; ++r) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    out[r][idx] = *reinterpret_cast<const uint32_t*>(&v);
+    if (r + 1 < N) {
+      x0 -= __low2float(v);
+      x1 -= __high2float(v);
+    }
   }
-  return v;
 }
 
-// Stage keys k0 .. k0 + kn - 1 of phi and g into kv (thread t stages key t).
-template <typename T>
-__device__ __forceinline__ void stage_keys(float (*kv)[kKRow], const T* ph, const T* gg,
-                                           int k_len, int k0, int kn) {
-  const int t = threadIdx.x;
-  if (t >= kn) return;
-  const long long kk = k0 + t;
+// One tile of 128 columns from column c0: `a`'s 8 channels into rows 0..7 and
+// `c`'s 32 into rows 8..39 of every part's plane.
+template <int P>
+__device__ __forceinline__ void stage_tile(bf16 (*dst)[kCt][kRow], const Src& a, const Src& c,
+                                           int b, int c0, bool vec) {
 #pragma unroll
-  for (int c = 0; c < kCa; ++c) kv[t][c] = to_f32(ph[(long long)c * k_len + kk]);
-#pragma unroll
-  for (int c = 0; c < kCg; ++c) kv[t][kCa + c] = to_f32(gg[(long long)c * k_len + kk]);
-}
-
-// Each operand's (C, N) block is dense; *_bs is its batch stride in elements.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_query_kernel(const T* __restrict__ thetaT, const T* __restrict__ phiT,
-                           const T* __restrict__ gT, const T* __restrict__ doutT,
-                           T* __restrict__ dthetaT, float* __restrict__ lse_out,
-                           float* __restrict__ c_out, int q_len, int k_len,
-                           long long theta_bs, long long phi_bs, long long g_bs,
-                           long long dout_bs) {
-  __shared__ __align__(16) float kv[kTile][kKRow];
-
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = q < q_len;
-  const T* th = thetaT + b * theta_bs;
-  const T* ph = phiT + b * phi_bs;
-  const T* gg = gT + b * g_bs;
-  const T* dd = doutT + b * dout_bs;
-
-  float theta2[kCa];  // theta * log2(e): scores in log2 units
-  float dout[kCg];
-#pragma unroll
-  for (int c = 0; c < kCa; ++c) {
-    theta2[c] = active ? to_f32(th[(long long)c * q_len + q]) * kLog2e : 0.f;
+  for (int p = 0; p < P; ++p) {
+    stage_rows(dst[p], a.plane(p, b), kCa, a.rs, c0, a.rs, vec);
+    stage_rows(dst[p] + kCa, c.plane(p, b), kCg, c.rs, c0, c.rs, vec);
   }
-#pragma unroll
-  for (int c = 0; c < kCg; ++c) dout[c] = active ? to_f32(dd[(long long)c * q_len + q]) : 0.f;
+  cp_async_commit();
+}
 
-  // pass 1: running max m, sum l of exp2(s - m), and t = sum exp2(s - m) dA
-  float m = -INFINITY, l = 0.f, t = 0.f;
-  for (int k0 = 0; k0 < k_len; k0 += kTile) {
-    const int kn = min(kTile, k_len - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage_keys(kv, ph, gg, k_len, k0, kn);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < kn; ++j) {
-      const float4* row = reinterpret_cast<const float4*>(kv[j]);
-      const float s = dot8(theta2, row);
-      const float da = dot32(dout, row + kCa / 4);
-      if (s > m) {  // rescale only when the running max moves
-        const float scale = exp2f(m - s);  // 0 on the first key
-        l *= scale;
-        t *= scale;
-        m = s;
+// ---- 0. float32 operands as bfloat16 planes --------------------------------------
+
+struct SplitJob {
+  const float* src;  // (B, c, n), batch stride bs
+  bf16* dst;         // (P, B, c, np), np = n rounded up to 8, zero past n
+  long long bs;
+  int c, n, np;
+};
+struct SplitJobs { SplitJob job[4]; };
+
+template <int P>
+__global__ void attention_bwd_split_kernel(SplitJobs jobs, int batch) {
+  const SplitJob jb = jobs.job[blockIdx.y];
+  const long long groups = (long long)batch * jb.c * (jb.np / 8);  // 8 columns a thread
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < groups;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int j = (i % (jb.np / 8)) * 8;
+    const long long row = i / (jb.np / 8);
+    const float* src = jb.src + (row / jb.c) * jb.bs + (row % jb.c) * jb.n;
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = j + e < jb.n ? src[j + e] : 0.f;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+        w[e] = *reinterpret_cast<const uint32_t*>(&v);
+        x[2 * e] -= __low2float(v);
+        x[2 * e + 1] -= __high2float(v);
       }
-      const float e = exp2f(s - m);
-      l += e;
-      t = fmaf(e, da, t);
+      *reinterpret_cast<uint4*>(jb.dst + (p * groups + i) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
     }
-  }
-  const float lse = m + log2f(l);
-  const float cq = t / l;
-
-  // pass 2: dtheta_q = sum_k A_qk (dA_qk - c_q) phi_k
-  float dth[kCa];
-#pragma unroll
-  for (int c = 0; c < kCa; ++c) dth[c] = 0.f;
-  for (int k0 = 0; k0 < k_len; k0 += kTile) {
-    const int kn = min(kTile, k_len - k0);
-    __syncthreads();
-    stage_keys(kv, ph, gg, k_len, k0, kn);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < kn; ++j) {
-      const float4* row = reinterpret_cast<const float4*>(kv[j]);
-      const float s = dot8(theta2, row);
-      const float da = dot32(dout, row + kCa / 4);
-      const float ds = exp2f(s - lse) * (da - cq);
-      const float4 p0 = row[0];
-      const float4 p1 = row[1];
-      dth[0] = fmaf(ds, p0.x, dth[0]);
-      dth[1] = fmaf(ds, p0.y, dth[1]);
-      dth[2] = fmaf(ds, p0.z, dth[2]);
-      dth[3] = fmaf(ds, p0.w, dth[3]);
-      dth[4] = fmaf(ds, p1.x, dth[4]);
-      dth[5] = fmaf(ds, p1.y, dth[5]);
-      dth[6] = fmaf(ds, p1.z, dth[6]);
-      dth[7] = fmaf(ds, p1.w, dth[7]);
-    }
-  }
-
-  if (active) {
-    T* o = dthetaT + (long long)b * kCa * q_len;
-#pragma unroll
-    for (int c = 0; c < kCa; ++c) o[(long long)c * q_len + q] = from_f32<T>(dth[c]);
-    lse_out[(long long)b * q_len + q] = lse;
-    c_out[(long long)b * q_len + q] = cq;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_key_kernel(const T* __restrict__ thetaT, const T* __restrict__ phiT,
-                         const T* __restrict__ gT, const T* __restrict__ doutT,
-                         const float* __restrict__ lse_in, const float* __restrict__ c_in,
-                         T* __restrict__ dphiT, T* __restrict__ dgT, int q_len, int k_len,
-                         long long theta_bs, long long phi_bs, long long g_bs,
-                         long long dout_bs) {
-  __shared__ __align__(16) float qv[kTile][kQRow];  // [query][theta | dout | lse, c]
+// ---- 1. lse and c per query --------------------------------------------------------
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, P > 1 ? 3 : 4)  // blocks an SM: shared memory's limit
+attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ lse_out,
+                 float* __restrict__ c_out, int q_len, int k_len, int wq, int vec_k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16(*kv)[P][kCt][kRow] = reinterpret_cast<bf16(*)[P][kCt][kRow]>(smem);  // [buffer][part]
+  float(*merge)[kRows][3] =
+      reinterpret_cast<float(*)[kRows][3]>(smem + sizeof(bf16) * 2 * P * kCt * kRow);
 
   const int b = blockIdx.y;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = k < k_len;
-  const T* th = thetaT + b * theta_bs;
-  const T* ph = phiT + b * phi_bs;
-  const T* gg = gT + b * g_bs;
-  const T* dd = doutT + b * dout_bs;
-  const float* lse_b = lse_in + (long long)b * q_len;
-  const float* c_b = c_in + (long long)b * q_len;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = warp % wq, kg = warp / wq, nkg = kWarps / wq;  // query warp, key group
+  const int q0 = (blockIdx.x * wq + qw) * kRows;
+  const bool warp_active = q0 < q_len;
 
-  float phi2[kCa];  // phi * log2(e): scores in log2 units
-  float g[kCg];
+  stage_tile<P>(kv[0], ph, gg, b, 0, vec_k);
+
+  // A fragments for the whole walk: theta (16 x 8), dout (16 x 32, two k16 steps)
+  uint32_t ta[P][2], doa[P][2][4];
 #pragma unroll
-  for (int c = 0; c < kCa; ++c) {
-    phi2[c] = active ? to_f32(ph[(long long)c * k_len + k]) * kLog2e : 0.f;
+  for (int p = 0; p < P; ++p) {
+    const bf16* tp = th.plane(p, b);
+    const bf16* dp = dd.plane(p, b);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + 8 * h + g;
+      const bool ok = q < q_len;
+      const bf16* col = tp + (long long)(2 * t) * th.rs + q;  // channels 2 t, 2 t + 1
+      ta[p][h] = pack_if(ok, col, col + th.rs);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long ch = 16 * s + 8 * hh + 2 * t;
+          doa[p][s][h + 2 * hh] = pack_if(ok, dp + ch * dd.rs + q, dp + (ch + 1) * dd.rs + q);
+        }
+    }
   }
-#pragma unroll
-  for (int c = 0; c < kCg; ++c) g[c] = active ? to_f32(gg[(long long)c * k_len + k]) : 0.f;
-  float dphi[kCa], dg[kCg];
-#pragma unroll
-  for (int c = 0; c < kCa; ++c) dphi[c] = 0.f;
-#pragma unroll
-  for (int c = 0; c < kCg; ++c) dg[c] = 0.f;
 
-  for (int q0 = 0; q0 < q_len; q0 += kTile) {
-    const int qn = min(kTile, q_len - q0);
-    __syncthreads();  // the previous tile is consumed
+  // per row g + 8 h, over this lane's columns of it: running max (score units),
+  // sum of exp2, sum of exp2 dA
+  float m[2] = {kLowest, kLowest}, l[2] = {0.f, 0.f}, tt[2] = {0.f, 0.f};
+
+  const int tiles = (k_len + kKt - 1) / kKt;
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {  // the next tile loads under this one's math
+      stage_tile<P>(kv[(it + 1) & 1], ph, gg, b, (it + 1) * kKt, vec_k);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_active) {
+      bf16(*cur)[kCt][kRow] = kv[it & 1];
+      const int kn = min(kKt, k_len - it * kKt);
+      for (int j0 = kg * kKs; j0 < kn; j0 += nkg * kKs) {
+        // consecutive mma go to different accumulators (a dependent one waits
+        // for the whole latency of the one before): the two k16 steps of dA
+        // have their own and are added at the end
+        float s[4][4], da[4][4], da1[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = da[nt][e] = da1[nt][e] = 0.f;
+#pragma unroll
+        for (int pj = 0; pj < P; ++pj) {
+          uint32_t pb[4];     // phi: four n-tiles of 8 keys
+          uint32_t gb[4][4];  // g: channels 0..15 and 16..31 of each n-tile
+          ldmatrix_x4_trans(pb, &cur[pj][lane & 7][j0 + (lane >> 3) * 8]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            ldmatrix_x4_trans(gb[nt], &cur[pj][kCa + (lane >> 3) * 8 + (lane & 7)][j0 + nt * 8]);
+#pragma unroll
+          for (int pi = 0; pi < P - pj; ++pi) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_16808_add(s[nt], ta[pi], pb[nt]);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_16816(da[nt], doa[pi][0], gb[nt][0], gb[nt][1]);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_16816(da1[nt], doa[pi][1], gb[nt][2], gb[nt][3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[nt][e] += da1[nt][e];
+        if (j0 + kKs > kn) {  // keys past the end
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (j0 + nt * 8 + 2 * t + (e & 1) >= kn) s[nt][e] = -INFINITY;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) cm = fmaxf(cm, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+          if (cm > m[h] + kSlack / kLog2e) {
+            const float scale = ex2((m[h] - cm) * kLog2e);  // 0 on the first chunk
+            l[h] *= scale;
+            tt[h] *= scale;
+            m[h] = cm;
+          }
+          const float nm = -m[h] * kLog2e;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 2 * h; e < 2 * h + 2; ++e) {
+              const float p = ex2(fmaf(s[nt][e], kLog2e, nm));
+              l[h] += p;
+              tt[h] = fmaf(p, da[nt][e], tt[h]);
+            }
+        }
+      }
+    }
+    __syncthreads();  // tile `it` is consumed
+  }
+
+  // the four lanes of a row, then the key groups, in a fixed order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float w = ex2((m[h] - mx) * kLog2e);
+    l[h] *= w;
+    tt[h] *= w;
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    tt[h] += __shfl_xor_sync(0xffffffffu, tt[h], 1);
+    tt[h] += __shfl_xor_sync(0xffffffffu, tt[h], 2);
+    if (t == 0) {
+      merge[warp][8 * h + g][0] = mx;
+      merge[warp][8 * h + g][1] = l[h];
+      merge[warp][8 * h + g][2] = tt[h];
+    }
+  }
+  __syncthreads();
+  if (kg == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 8 * h + g;
+      const int q = q0 + row;
+      if (q >= q_len) continue;
+      float mx = kLowest;
+      for (int i = 0; i < nkg; ++i) mx = fmaxf(mx, merge[qw + i * wq][row][0]);
+      float ls = 0.f, ts = 0.f;
+      for (int i = 0; i < nkg; ++i) {
+        const float* part = merge[qw + i * wq][row];
+        const float w = ex2((part[0] - mx) * kLog2e);
+        ls += part[1] * w;
+        ts += part[2] * w;
+      }
+      lse_out[(long long)b * q_len + q] = mx * kLog2e + log2f(ls);
+      c_out[(long long)b * q_len + q] = ts / ls;
+    }
+  }
+}
+
+// ---- 2. the gradients, keys as rows ---------------------------------------------------
+
+template <int P, int R>
+__global__ void __launch_bounds__(kThreads, P > 1 ? 2 : 4)  // blocks an SM: shared memory's limit
+attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restrict__ lse,
+                 const float* __restrict__ cq, float* __restrict__ dth_part,
+                 float* __restrict__ dkv_part, int q_len, int k_len, int tiles_per_split,
+                 int vec_q) {
+  constexpr int kTerms = P > R ? P : R;  // parts i of A or dS and j of an operand: i + j < kTerms
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16(*qv)[P][kCt][kRow] = reinterpret_cast<bf16(*)[P][kCt][kRow]>(smem);  // [buffer][part]
+  float(*st)[2][kQt] =
+      reinterpret_cast<float(*)[2][kQt]>(smem + sizeof(bf16) * 2 * P * kCt * kRow);  // lse, c
+  float(*slots)[kCa][kSlotRow] = reinterpret_cast<float(*)[kCa][kSlotRow]>(st + 2);
+
+  const int b = blockIdx.z, kt = blockIdx.x, split = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = kt * kKeys + warp * kRows;
+  const bool warp_active = key0 < k_len;
+  const int warps_active = min(kWarps, (k_len - kt * kKeys + kRows - 1) / kRows);
+  const int t0 = split * tiles_per_split;
+  const int t1 = min(t0 + tiles_per_split, (q_len + kQt - 1) / kQt);
+  const float* lse_b = lse + (long long)b * q_len;
+  const float* c_b = cq + (long long)b * q_len;
+
+  auto stage = [&](int tile) {
+    stage_tile<P>(qv[(tile - t0) & 1], th, dd, b, tile * kQt, vec_q);
+    for (int i = threadIdx.x; i < kQt; i += kThreads) {
+      const int q = tile * kQt + i;
+      st[(tile - t0) & 1][0][i] = q < q_len ? lse_b[q] : INFINITY;  // A = 0 past the end
+      st[(tile - t0) & 1][1][i] = q < q_len ? c_b[q] : 0.f;
+    }
+  };
+  stage(t0);
+
+  // A fragments of the warp's 16 keys: phi^T (16 x 8), g^T (16 x 32, two k16
+  // steps); phi again as the B operand of dtheta (16 keys x 8 channels). Keys
+  // past the end are zero in all three: their rows of A^T and dS^T are finite,
+  // add nothing to dtheta, and their dphi and dg are not stored.
+  uint32_t pa[P][2], ga[P][2][4], pbk[P][2];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const bf16* pp = ph.plane(p, b);
+    const bf16* gp = gg.plane(p, b);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 8 * h + g;
+      const bool ok = key < k_len;
+      const bf16* col = pp + (long long)(2 * t) * ph.rs + key;  // channels 2 t, 2 t + 1
+      pa[p][h] = pack_if(ok, col, col + ph.rs);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long ch = 16 * s + 8 * hh + 2 * t;
+          ga[p][s][h + 2 * hh] = pack_if(ok, gp + ch * gg.rs + key, gp + (ch + 1) * gg.rs + key);
+        }
+      const int kb = key0 + 8 * h + 2 * t;  // keys 2 t, 2 t + 1 of half h, channel g
+      const bf16 zero = __float2bfloat16(0.f);
+      const bf16* row = pp + (long long)g * ph.rs;
+      pbk[p][h] = pack_bf16(kb < k_len ? row[kb] : zero, kb + 1 < k_len ? row[kb + 1] : zero);
+    }
+  }
+
+  float dphi[4], dg[4][4];  // rows: keys g, g + 8; columns: channels 2 t, 2 t + 1 (+ 8 ct)
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    dphi[e] = 0.f;
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) dg[ct][e] = 0.f;
+  }
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int buf = (tile - t0) & 1;
+    if (tile + 1 < t1) {  // the next tile loads under this one's math
+      stage(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_active) {
+      bf16(*cur)[kCt][kRow] = qv[buf];
+      const int qn = min(kQt, q_len - tile * kQt);
+      for (int j0 = 0; j0 < qn; j0 += kKs) {
+        uint32_t tb[P][4];  // theta: four n-tiles of 8 queries
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          ldmatrix_x4_trans(tb[p], &cur[p][lane & 7][j0 + (lane >> 3) * 8]);
+#pragma unroll
+        for (int hq = 0; hq < 2; ++hq) {  // steps of 16 queries
+          const int j1 = j0 + kRows * hq;
+          if (j1 >= qn) break;
+          // S^T = phi^T theta and dA^T = g^T dout: 16 keys x two n-tiles of 8 queries
+          // (consecutive mma go to different accumulators: see kernel 1)
+          float s[2][4], da[2][4], da1[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = da[n][e] = da1[n][e] = 0.f;
+#pragma unroll
+          for (int pj = 0; pj < P; ++pj) {
+            uint32_t db[2][4];  // dout: channels 0..15 and 16..31 of each n-tile
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              ldmatrix_x4_trans(db[n], &cur[pj][kCa + (lane >> 3) * 8 + (lane & 7)][j1 + n * 8]);
+#pragma unroll
+            for (int pi = 0; pi < P - pj; ++pi) {
+#pragma unroll
+              for (int n = 0; n < 2; ++n) mma_16808_add(s[n], pa[pi], tb[pj][2 * hq + n]);
+#pragma unroll
+              for (int n = 0; n < 2; ++n) mma_16816(da[n], ga[pi][0], db[n][0], db[n][1]);
+#pragma unroll
+              for (int n = 0; n < 2; ++n) mma_16816(da1[n], ga[pi][1], db[n][2], db[n][3]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) da[n][e] += da1[n][e];
+          // A^T and dS^T in place, as bfloat16 parts in the A layout of m16n8k16
+          // (register h + 2 n: keys g + 8 h, queries 2 t, 2 t + 1 of n-tile n)
+          uint32_t ap[R][4], dsp[R][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int col = j1 + n * 8 + 2 * t;
+            const float2 ls = *reinterpret_cast<const float2*>(&st[buf][0][col]);
+            const float2 cc = *reinterpret_cast<const float2*>(&st[buf][1][col]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float a0 = ex2(fmaf(s[n][2 * h], kLog2e, -ls.x));
+              const float a1 = ex2(fmaf(s[n][2 * h + 1], kLog2e, -ls.y));
+              split_pack<R>(a0, a1, ap, h + 2 * n);
+              split_pack<R>(a0 * (da[n][2 * h] - cc.x), a1 * (da[n][2 * h + 1] - cc.y), dsp,
+                            h + 2 * n);
+            }
+          }
+          // dphi += dS^T theta and dg += A^T dout: the 16 queries are the
+          // contraction. dtheta of the step = dS phi over the warp's keys: dS
+          // with queries as rows is the transpose of each 8x8 block of dS^T.
+          uint32_t dst[R][4];
+#pragma unroll
+          for (int pi = 0; pi < R; ++pi) {
+            dst[pi][0] = movmatrix_trans(dsp[pi][0]);
+            dst[pi][1] = movmatrix_trans(dsp[pi][2]);
+            dst[pi][2] = movmatrix_trans(dsp[pi][1]);
+            dst[pi][3] = movmatrix_trans(dsp[pi][3]);
+          }
+          float dth[4] = {0.f, 0.f, 0.f, 0.f};
+          const int col = j1 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+          for (int pj = 0; pj < P; ++pj) {
+            uint32_t r0[4], r1[4], r2[4];
+            // rows theta | dout 0..7, dout 8..15 | 16..23, dout 24..31 (twice)
+            ldmatrix_x4(r0, &cur[pj][(lane & 7) + 8 * (lane >> 4)][col]);
+            ldmatrix_x4(r1, &cur[pj][16 + (lane & 7) + 8 * (lane >> 4)][col]);
+            ldmatrix_x4(r2, &cur[pj][32 + (lane & 7)][col]);
+#pragma unroll
+            for (int pi = 0; pi < R && pi < kTerms - pj; ++pi) {
+              mma_16816(dphi, dsp[pi], r0[0], r0[1]);
+              mma_16816(dg[0], ap[pi], r0[2], r0[3]);
+              mma_16816(dg[1], ap[pi], r1[0], r1[1]);
+              mma_16816(dg[2], ap[pi], r1[2], r1[3]);
+              mma_16816(dg[3], ap[pi], r2[0], r2[1]);
+              mma_16816(dth, dst[pi], pbk[pj][0], pbk[pj][1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // queries g, g + 8; channels 2 t, 2 t + 1
+            slots[warp][2 * t + (e & 1)][j1 + g + 8 * (e >> 1)] = dth[e];
+        }
+      }
+    }
+    __syncthreads();  // tile consumed, slots written
     {
-      const int r = threadIdx.x;
-      if (r < qn) {
-        const long long qq = q0 + r;
+      // the key tile's partial dtheta: the block's warps in order. Unrolled, so
+      // that a thread's loads are all in flight before its first sum.
+      float* out = dth_part + ((long long)b * gridDim.x + kt) * kCa * q_len;
+      const int j = threadIdx.x;  // kQt == kThreads: a thread sums one query's 8 channels
 #pragma unroll
-        for (int c = 0; c < kCa; ++c) qv[r][c] = to_f32(th[(long long)c * q_len + qq]);
+      for (int ch = 0; ch < kCa; ++ch) {
+        float v = slots[0][ch][j];
 #pragma unroll
-        for (int c = 0; c < kCg; ++c) qv[r][kCa + c] = to_f32(dd[(long long)c * q_len + qq]);
-        qv[r][kCa + kCg] = lse_b[qq];
-        qv[r][kCa + kCg + 1] = c_b[qq];
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < qn; ++j) {
-      const float4* row = reinterpret_cast<const float4*>(qv[j]);
-      const float s = dot8(phi2, row);
-      const float da = dot32(g, row + kCa / 4);
-      const float4 tail = row[(kCa + kCg) / 4];  // lse, c, pad, pad
-      const float a = exp2f(s - tail.x);
-      const float ds = a * (da - tail.y);
-      const float4 t0 = row[0];
-      const float4 t1 = row[1];
-      dphi[0] = fmaf(ds, t0.x, dphi[0]);
-      dphi[1] = fmaf(ds, t0.y, dphi[1]);
-      dphi[2] = fmaf(ds, t0.z, dphi[2]);
-      dphi[3] = fmaf(ds, t0.w, dphi[3]);
-      dphi[4] = fmaf(ds, t1.x, dphi[4]);
-      dphi[5] = fmaf(ds, t1.y, dphi[5]);
-      dphi[6] = fmaf(ds, t1.z, dphi[6]);
-      dphi[7] = fmaf(ds, t1.w, dphi[7]);
-      const float4* dv = row + kCa / 4;
-#pragma unroll
-      for (int c4 = 0; c4 < kCg / 4; ++c4) {
-        const float4 v = dv[c4];
-        dg[4 * c4 + 0] = fmaf(a, v.x, dg[4 * c4 + 0]);
-        dg[4 * c4 + 1] = fmaf(a, v.y, dg[4 * c4 + 1]);
-        dg[4 * c4 + 2] = fmaf(a, v.z, dg[4 * c4 + 2]);
-        dg[4 * c4 + 3] = fmaf(a, v.w, dg[4 * c4 + 3]);
+        for (int w = 1; w < kWarps; ++w) v += w < warps_active ? slots[w][ch][j] : 0.f;
+        if (tile * kQt + j < q_len) out[(long long)ch * q_len + tile * kQt + j] = v;
       }
     }
   }
 
-  if (active) {
-    T* op = dphiT + (long long)b * kCa * k_len;
-    T* og = dgT + (long long)b * kCg * k_len;
+  if (warp_active) {
+    float* out = dkv_part + ((long long)b * gridDim.y + split) * kCt * k_len;
 #pragma unroll
-    for (int c = 0; c < kCa; ++c) op[(long long)c * k_len + k] = from_f32<T>(dphi[c]);
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + g + 8 * (e >> 1);
+      const int ch = 2 * t + (e & 1);
+      if (key >= k_len) continue;
+      out[(long long)ch * k_len + key] = dphi[e];
 #pragma unroll
-    for (int c = 0; c < kCg; ++c) og[(long long)c * k_len + k] = from_f32<T>(dg[c]);
+      for (int ct = 0; ct < 4; ++ct) out[(long long)(kCa + 8 * ct + ch) * k_len + key] = dg[ct][e];
+    }
   }
 }
 
+// ---- 3. the partial sums, in order -------------------------------------------------------
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
+
 template <typename T>
-void launch(const void* thetaT, const void* phiT, const void* gT, const void* doutT,
-            void* dthetaT, void* dphiT, void* dgT, float* lse, float* cq, int batch,
-            int q_len, int k_len, long long theta_bs, long long phi_bs, long long g_bs,
-            long long dout_bs, cudaStream_t s) {
-  const T* th = static_cast<const T*>(thetaT);
-  const T* ph = static_cast<const T*>(phiT);
-  const T* gg = static_cast<const T*>(gT);
-  const T* dd = static_cast<const T*>(doutT);
-  const dim3 q_grid((q_len + kThreads - 1) / kThreads, batch);
-  attention_bwd_query_kernel<T><<<q_grid, kThreads, 0, s>>>(
-      th, ph, gg, dd, static_cast<T*>(dthetaT), lse, cq, q_len, k_len, theta_bs, phi_bs,
-      g_bs, dout_bs);
-  const dim3 k_grid((k_len + kThreads - 1) / kThreads, batch);
-  attention_bwd_key_kernel<T><<<k_grid, kThreads, 0, s>>>(
-      th, ph, gg, dd, lse, cq, static_cast<T*>(dphiT), static_cast<T*>(dgT), q_len, k_len,
-      theta_bs, phi_bs, g_bs, dout_bs);
+__global__ void attention_bwd_reduce_kernel(const float* __restrict__ dth_part,
+                                  const float* __restrict__ dkv_part, T* __restrict__ dthetaT,
+                                  T* __restrict__ dphiT, T* __restrict__ dgT, int batch, int q_len,
+                                  int k_len, int key_tiles, int splits) {
+  const long long nq = (long long)kCa * q_len, nk = (long long)kCt * k_len;
+  const long long total = batch * (nq + nk);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    if (i < batch * nq) {
+      const long long b = i / nq, r = i % nq;
+      const float* part = dth_part + b * key_tiles * nq + r;
+      float v = part[0];
+      for (int j = 1; j < key_tiles; ++j) v += part[j * nq];
+      store(dthetaT + i, v);
+    } else {
+      const long long b = (i - batch * nq) / nk, r = (i - batch * nq) % nk;
+      const float* part = dkv_part + b * splits * nk + r;
+      float v = part[0];
+      for (int j = 1; j < splits; ++j) v += part[j * nk];
+      const long long na = (long long)kCa * k_len;
+      if (r < na) store(dphiT + b * na + r, v);
+      else store(dgT + b * (nk - na) + r - na, v);
+    }
+  }
+}
+
+__global__ void attention_bwd_empty_kernel() {}
+
+// ---- the host side -----------------------------------------------------------------------
+
+template <int P>
+constexpr int stats_smem() {
+  return sizeof(bf16) * 2 * P * kCt * kRow + sizeof(float) * kWarps * kRows * 3;
+}
+template <int P>
+constexpr int grads_smem() {
+  return sizeof(bf16) * 2 * P * kCt * kRow +
+         sizeof(float) * (2 * 2 * kQt + kWarps * kCa * kSlotRow);
+}
+
+inline int blocks_for(long long elements) {
+  return static_cast<int>(elements / 256 < 1 ? 1 : elements / 256 > 2048 ? 2048 : elements / 256);
+}
+
+struct Call {
+  const void *thetaT, *phiT, *gT, *doutT;
+  void *dthetaT, *dphiT, *dgT;
+  float *lse, *cq, *dth_part, *dkv_part;
+  bf16* planes;
+  int batch, q_len, k_len;
+  long long theta_bs, phi_bs, g_bs, dout_bs;
+  int query_warps, tiles_per_split;
+};
+
+// a bfloat16 operand as its own single plane; 16-byte copies where its rows allow them
+inline Src own_plane(const void* p, long long bs, int n, int* vec) {
+  *vec = *vec && n % 8 == 0 && bs % 8 == 0 && aligned16(p);
+  return Src{static_cast<const bf16*>(p), 0, bs, n};
+}
+
+template <typename T>
+cudaError_t launch(const Call& c, cudaStream_t s) {
+  constexpr int P = Parts<T>::kParts, R = Parts<T>::kRegParts;
+  const int key_tiles = (c.k_len + kKeys - 1) / kKeys;
+  const int query_tiles = (c.q_len + kQt - 1) / kQt;
+  const int splits = (query_tiles + c.tiles_per_split - 1) / c.tiles_per_split;
+  Src th, ph, gg, dd;
+  int vec_q = 1, vec_k = 1;
+  if constexpr (P == 1) {
+    th = own_plane(c.thetaT, c.theta_bs, c.q_len, &vec_q);
+    dd = own_plane(c.doutT, c.dout_bs, c.q_len, &vec_q);
+    ph = own_plane(c.phiT, c.phi_bs, c.k_len, &vec_k);
+    gg = own_plane(c.gT, c.g_bs, c.k_len, &vec_k);
+  } else {
+    SplitJobs jobs;
+    bf16* at = c.planes;
+    int i = 0;
+    auto planes_of = [&](const void* src, long long bs, int ch, int n) {
+      const int np = (n + 7) / 8 * 8;  // rows padded to 8 columns: 16-byte copies always apply
+      const long long plane = (long long)c.batch * ch * np;
+      jobs.job[i++] = SplitJob{static_cast<const float*>(src), at, bs, ch, n, np};
+      const Src out{at, plane, (long long)ch * np, np};
+      at += P * plane;
+      return out;
+    };
+    th = planes_of(c.thetaT, c.theta_bs, kCa, c.q_len);
+    ph = planes_of(c.phiT, c.phi_bs, kCa, c.k_len);
+    gg = planes_of(c.gT, c.g_bs, kCg, c.k_len);
+    dd = planes_of(c.doutT, c.dout_bs, kCg, c.q_len);
+    const dim3 grid(blocks_for((long long)c.batch * kCg * dd.rs / 8), 4);
+    attention_bwd_split_kernel<P><<<grid, 256, 0, s>>>(jobs, c.batch);
+  }
+  // more than 48 KB of shared memory a block has to be asked for, once per device
+  static bool asked[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64 || !asked[device]) {
+    err = cudaFuncSetAttribute(attention_bwd_stats_kernel<P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, stats_smem<P>());
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(attention_bwd_grads_kernel<P, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, grads_smem<P>());
+    if (err != cudaSuccess) return err;
+    if (device < 64) asked[device] = true;
+  }
+  const int wq = c.query_warps;
+  const dim3 stats_grid((c.q_len + kRows * wq - 1) / (kRows * wq), c.batch);
+  attention_bwd_stats_kernel<P><<<stats_grid, kThreads, stats_smem<P>(), s>>>(
+      th, ph, gg, dd, c.lse, c.cq, c.q_len, c.k_len, wq, vec_k);
+  const dim3 grads_grid(key_tiles, splits, c.batch);
+  attention_bwd_grads_kernel<P, R><<<grads_grid, kThreads, grads_smem<P>(), s>>>(
+      th, ph, gg, dd, c.lse, c.cq, c.dth_part, c.dkv_part, c.q_len, c.k_len, c.tiles_per_split,
+      vec_q);
+  const long long outs = (long long)c.batch * (kCa * (long long)c.q_len + kCt * (long long)c.k_len);
+  attention_bwd_reduce_kernel<T><<<blocks_for(outs), 256, 0, s>>>(
+      c.dth_part, c.dkv_part, static_cast<T*>(c.dthetaT), static_cast<T*>(c.dphiT),
+      static_cast<T*>(c.dgT), c.batch, c.q_len, c.k_len, key_tiles, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. dthetaT (B, 8, Q), dphiT (B, 8, K) and
-// dgT (B, 32, K) are dense; lse and c are float32 (B, Q) scratch. `device` is
-// the operands' CUDA ordinal (see attention_fwd). Returns cudaGetLastError()
-// after the two launches.
+// dgT (B, 32, K) are dense. Scratch, all written before it is read: lse and cq
+// float32 (B, Q); dth_part float32 (B, key tiles, 8, Q) with ceil(K / 64) key
+// tiles; dkv_part float32 (B, splits, 40, K) with ceil(ceil(Q / 128) /
+// tiles_per_split) splits; planes, float32 operands only, bfloat16
+// 3 x B x 40 x (Q + K, each rounded up to 8). query_warps is 1, 2 or 4 and
+// tiles_per_split at least 1: the caller's plan.
+// `device` is the operands' CUDA ordinal (see attention_fwd). Returns
+// cudaGetLastError() after the launches: three, and the split before them for
+// float32.
 extern "C" int attention_bwd(const void* thetaT, const void* phiT, const void* gT,
                              const void* doutT, void* dthetaT, void* dphiT, void* dgT,
-                             void* lse, void* cq, int batch, int q_len, int k_len,
-                             long long theta_bs, long long phi_bs, long long g_bs,
-                             long long dout_bs, int dtype, int device, void* stream) {
+                             void* lse, void* cq, void* dth_part, void* dkv_part, void* planes,
+                             int batch, int q_len, int k_len, long long theta_bs,
+                             long long phi_bs, long long g_bs, long long dout_bs,
+                             int query_warps, int tiles_per_split, int dtype, int device,
+                             void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  float* c = static_cast<float*>(cq);
-  if (dtype == 1) {
-    launch<__nv_bfloat16>(thetaT, phiT, gT, doutT, dthetaT, dphiT, dgT, l, c, batch, q_len,
-                          k_len, theta_bs, phi_bs, g_bs, dout_bs, s);
-  } else if (dtype == 0) {
-    launch<float>(thetaT, phiT, gT, doutT, dthetaT, dphiT, dgT, l, c, batch, q_len, k_len,
-                  theta_bs, phi_bs, g_bs, dout_bs, s);
-  } else {
+  if ((query_warps != 1 && query_warps != 2 && query_warps != 4) || tiles_per_split < 1 ||
+      (dtype == 0 && planes == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Call c{thetaT, phiT, gT, doutT, dthetaT, dphiT, dgT,
+               static_cast<float*>(lse), static_cast<float*>(cq), static_cast<float*>(dth_part),
+               static_cast<float*>(dkv_part), static_cast<bf16*>(planes), batch, q_len, k_len,
+               theta_bs, phi_bs, g_bs, dout_bs, query_warps, tiles_per_split};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return static_cast<int>(launch<bf16>(c, s));
+  if (dtype == 0) return static_cast<int>(launch<float>(c, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As many empty launches as a backward call of that dtype makes: the floor
+// under a call's time once the card is filled.
+extern "C" int attention_bwd_floor(int dtype, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  for (int i = 0; i < (dtype == 0 ? 4 : 3); ++i)
+    attention_bwd_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tile size, so the host can check that its emulation uses the same one.
-extern "C" int attention_bwd_tile() { return kTile; }
+// The constants the host's plan and its CPU emulation share with the kernels.
+extern "C" int attention_bwd_warps() { return kWarps; }
+extern "C" int attention_bwd_warp_rows() { return kRows; }
+extern "C" int attention_bwd_keys() { return kKeys; }
+extern "C" int attention_bwd_query_tile() { return kQt; }
+extern "C" int attention_bwd_stats_blocks_per_sm() { return kStatsBlocksPerSm; }
+extern "C" int attention_bwd_grads_blocks_per_sm() { return kGradsBlocksPerSm; }
+extern "C" int attention_bwd_parts(int dtype) {
+  return dtype == 0 ? Parts<float>::kParts : Parts<bf16>::kParts;
+}
+extern "C" int attention_bwd_reg_parts(int dtype) {
+  return dtype == 0 ? Parts<float>::kRegParts : Parts<bf16>::kRegParts;
+}

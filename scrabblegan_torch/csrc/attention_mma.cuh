@@ -124,6 +124,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
+// an 8x8 bf16 matrix held as an accumulator or A fragment holds it (lane l:
+// row l / 4, columns 2 (l % 4) and the next), transposed, in the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
 // d = a b: (16 x 8) (8 x 8), bf16 operands, float32 sums from zero
 __device__ __forceinline__ void mma_16808(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
   asm volatile(
@@ -131,6 +139,14 @@ __device__ __forceinline__ void mma_16808(float (&d)[4], const uint32_t (&a)[2],
       "{%7, %7, %7, %7};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(b), "f"(0.f));
+}
+// d += a b: (16 x 8) (8 x 8), bf16 operands, float32 sums
+__device__ __forceinline__ void mma_16808_add(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 // d += a b: (16 x 16) (16 x 8), bf16 operands, float32 sums
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,

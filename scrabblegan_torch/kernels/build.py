@@ -40,12 +40,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
     lib.attention_fwd.restype = i
-    lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, ll, ll, ll, ll, i, i, p]
+    lib.attention_bwd.argtypes = [p] * 12 + [i, i, i, ll, ll, ll, ll, i, i, i, i, p]
     lib.attention_bwd.restype = i
+    lib.attention_bwd_floor.argtypes = [i, i, p]
+    lib.attention_bwd_floor.restype = i
+    for name in ("attention_bwd_parts", "attention_bwd_reg_parts"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
     lib.fused_block_fwd.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
     lib.fused_block_fwd.restype = i
     for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk",
-                 "attention_fwd_warp_queries", "attention_bwd_tile",
+                 "attention_fwd_warp_queries", "attention_bwd_warps",
+                 "attention_bwd_warp_rows", "attention_bwd_keys", "attention_bwd_query_tile",
+                 "attention_bwd_stats_blocks_per_sm", "attention_bwd_grads_blocks_per_sm",
                  "fused_block_fwd_channels", "fused_block_fwd_key_tile"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i

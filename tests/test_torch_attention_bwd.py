@@ -1,15 +1,18 @@
 """The attention backward of the PyTorch port against the JAX package (CPU):
-the plain backward `attention_backward_reference` and the CUDA kernel's
-two-launch algorithm emulated in torch (`attention_bwd_emulation`), held to
-`_xla_backward` and to the Pallas backward kernel run by the Pallas
-interpreter; the autograd Function `AttentionCore` with the emulations in
-place of its launchers, held to autograd through `attention_reference`; and
-the CUDA dispatch, which must return the Function's output with a grad_fn.
+the plain backward `attention_backward_reference` and the CUDA kernels'
+algorithm emulated in torch (`attention_bwd_emulation`: the statistics, the
+gradients with keys as rows and their partial sums in the order the
+reduction kernel adds them, every product a sum of bfloat16 products as the
+tensor cores form it), held to `_xla_backward` and to the Pallas backward
+kernel run by the Pallas interpreter; the plan that cuts a call into
+blocks; the autograd Function `AttentionCore` with the emulations in place
+of its launchers, held to autograd through `attention_reference`; and the
+CUDA dispatch, which must return the Function's output with a grad_fn.
 
-The CUDA kernel itself cannot run here; chip_smoke.py holds it to the plain
-backward on the card. Tolerances: 2e-4 in float32, the JAX backward tests'
-(tests/test_kernels.py), and 2e-2 in bfloat16 (the grads are stored in
-bfloat16: one ulp at |g| ~ 4 is 1.6e-2); against the interpreted Pallas
+The CUDA kernels themselves cannot run here; chip_smoke.py holds them to the
+plain backward on the card. Tolerances: 2e-4 in float32, the JAX backward
+tests' (tests/test_kernels.py), and 2e-2 in bfloat16 (the grads are stored
+in bfloat16: one ulp at |g| ~ 4 is 1.6e-2); against the interpreted Pallas
 kernel, whose float32 scores are split into three bfloat16 products, 1e-3 in
 float32 (5.3e-4 measured at (5120, 1280))."""
 
@@ -30,10 +33,15 @@ torch.set_num_threads(1)
 
 TOLS = {"float32": 2e-4, "bfloat16": 2e-2}
 PALLAS_F32_TOL = 1e-3
-SHAPES = [(512, 128),    # G's B3 at len 1
-          (640, 160),    # D's and W's B1 at len 5
-          (5120, 1280),  # G's B3 at len 10: ten key tiles, forty query tiles
-          (300, 75)]     # ragged: neither Q nor K a multiple of the 128-row tile
+SHAPES = [(2, 512, 128),    # G's B3 at len 1
+          (2, 640, 160),    # D's and W's B1 at len 5: 2.5 blocks of keys, 5 query splits
+          (2, 5120, 1280),  # G's B3 at len 10: twenty key tiles, forty query tiles in 20 splits
+          (2, 300, 75),     # ragged: neither Q nor K a multiple of a tile
+          (2, 640, 75),     # K not a multiple of 8: staged element by element on the card
+          (2, 128, 129),    # K one past a key tile of the statistics kernel
+          (2, 72, 40),      # Q not a multiple of the warp's 16 rows
+          (1, 640, 160),    # batch 1
+          (8, 256, 96)]     # 1.5 blocks of keys, the last with two idle warps
 
 
 def operands(seed, b, q, k, dtype):
@@ -55,9 +63,9 @@ def assert_grads_close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("q,k", SHAPES)
-def test_plain_backward_and_emulation_match_jax(q, k, dtype):
-    jax_ops, torch_ops = operands(q + k, 2, q, k, dtype)
+@pytest.mark.parametrize("b,q,k", SHAPES)
+def test_plain_backward_and_emulation_match_jax(b, q, k, dtype):
+    jax_ops, torch_ops = operands(q + k, b, q, k, dtype)
     tol = TOLS[dtype]
     want = _xla_backward(*jax_ops)
     plain = attention.attention_backward_reference(*torch_ops)
@@ -72,12 +80,83 @@ def test_plain_backward_and_emulation_match_jax(q, k, dtype):
                        max(tol, PALLAS_F32_TOL))
 
 
-def test_emulation_uses_the_kernels_tile():
-    src = (Path(attention.__file__).parents[1] / "csrc" / "attention_bwd.cu").read_text()
-    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))  # noqa: E731
-    assert re.search(r"constexpr int kTile = kThreads;", src)
-    assert const("kThreads") == attention.BWD_TILE
-    assert (const("kCa"), const("kCg")) == (attention.KERNEL_CA, attention.KERNEL_CG)
+def test_emulation_uses_the_kernels_constants():
+    """The tile sizes, the plan's targets and the numbers of bfloat16 parts,
+    read from the CUDA sources, are the emulation's and the plan's."""
+    csrc = Path(attention.__file__).parents[1] / "csrc"
+    bwd, mma = (csrc / "attention_bwd.cu").read_text(), (csrc / "attention_mma.cuh").read_text()
+    const = lambda src, name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))  # noqa: E731
+    assert (const(mma, "kCa"), const(mma, "kCg")) == (attention.KERNEL_CA, attention.KERNEL_CG)
+    assert (const(mma, "kKt"), const(mma, "kKs")) == (attention.KEY_TILE, attention.KEY_CHUNK)
+    assert re.search(r"constexpr int kWarps = kThreads / 32;", bwd)
+    assert const(mma, "kThreads") // 32 == attention.BWD_WARPS
+    assert const(bwd, "kRows") == attention.BWD_WARP_ROWS
+    assert re.search(r"constexpr int kKeys = kWarps \* kRows;", bwd)
+    assert attention.BWD_KEYS == attention.BWD_WARPS * attention.BWD_WARP_ROWS
+    assert re.search(r"constexpr int kQt = kKt;", bwd)
+    assert attention.BWD_QUERY_TILE == attention.KEY_TILE
+    assert const(bwd, "kStatsBlocksPerSm") == attention.BWD_STATS_BLOCKS_PER_SM
+    assert const(bwd, "kGradsBlocksPerSm") == attention.BWD_GRADS_BLOCKS_PER_SM
+    parts = {name: tuple(map(int, re.search(
+        rf"struct Parts<{name}> {{ static constexpr int kParts = (\d), kRegParts = (\d); }};",
+        bwd).groups())) for name in ("float", "bf16")}
+    assert parts == {"float": (attention.BWD_PARTS[torch.float32],
+                               attention.BWD_REG_PARTS[torch.float32]),
+                     "bf16": (attention.BWD_PARTS[torch.bfloat16],
+                              attention.BWD_REG_PARTS[torch.bfloat16])}
+    assert float(re.search(r"constexpr float kSlack = ([\d.]+)f;", mma).group(1)) == attention.MAX_SLACK
+
+
+@pytest.mark.parametrize("b,q,k,want", [
+    # the train step at batch 16: both kernels get a block for every SM and more
+    (16, 640, 160, dict(query_warps=2, key_tiles=3, tiles_per_split=1, query_splits=5)),
+    (16, 2560, 640, dict(query_warps=4, key_tiles=10, tiles_per_split=3, query_splits=7)),
+    (16, 128, 32, dict(query_warps=1, key_tiles=1, tiles_per_split=1, query_splits=1)),
+    # a large batch fills the card without a split
+    (1024, 2560, 640, dict(query_warps=4, key_tiles=10, tiles_per_split=20, query_splits=1)),
+    (2, 300, 75, dict(query_warps=1, key_tiles=2, tiles_per_split=1, query_splits=3)),
+])
+def test_backward_plan_fills_the_card(b, q, k, want):
+    plan = attention.backward_plan(b, q, k, sms=132)
+    assert plan == want
+    query_tiles = -(-q // attention.BWD_QUERY_TILE)
+    assert (plan["query_splits"] - 1) * plan["tiles_per_split"] < query_tiles \
+        <= plan["query_splits"] * plan["tiles_per_split"]  # every split has a tile, every tile a split
+    rows = attention.BWD_WARP_ROWS
+    stats_blocks = b * -(-q // (rows * plan["query_warps"]))
+    grads_blocks = b * plan["key_tiles"] * plan["query_splits"]
+    if b * q >= 132 * rows:  # the shape has the rows for a block an SM
+        assert stats_blocks >= 132
+    if b * k >= 132 * rows:
+        assert grads_blocks >= 132
+
+
+@pytest.mark.parametrize("sms", [1, 132, 100000])
+def test_emulation_does_not_depend_on_the_split(sms):
+    """The plan changes the order of the sums, not what is summed: one block
+    for all (1 SM), the H100's plan, and every tile a split of its own agree
+    far inside the tolerance."""
+    _, torch_ops = operands(3, 2, 640, 160, "float32")
+    want = attention.attention_backward_reference(*torch_ops)
+    got = attention.attention_bwd_emulation(*torch_ops, sms=sms)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+def test_bfloat16_needs_two_parts_of_the_probabilities(monkeypatch):
+    """Why the kernel splits A and dS in two for bfloat16 operands: rounded
+    once, dtheta and dphi leave the 2e-2 tolerance; in two parts they stay
+    four times inside it."""
+    _, torch_ops = operands(5, 16, 640, 160, "bfloat16")
+    want = attention.attention_backward_reference(*torch_ops)
+
+    def worst(got):
+        return max(((g.float() - w.float()).abs() / (1 + w.float().abs())).max().item()
+                   for g, w in zip(got, want))
+
+    assert worst(attention.attention_bwd_emulation(*torch_ops)) < 1e-2
+    monkeypatch.setitem(attention.BWD_REG_PARTS, torch.bfloat16, 1)
+    assert worst(attention.attention_bwd_emulation(*torch_ops)) > 2e-2
 
 
 @pytest.fixture
