@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card (written for an H100).
 
-Drives the port's two paths at the full widths of the repo's networks, with
+Drives the port's paths at the full widths of the repo's networks, with
 random weights made from a seed, through the hand-written attention CUDA
 kernels: the serving path, the generator from (labels, z) to word images
 (vocab 52, filter bank (32, 8192), channels 512/256/128/64, bf16, noise z),
-and the four-network train step (G, D, R, W at batch 16). Phases, one line
-each or more:
+the four-network train step (G, D, R, W at batch 16), and the epoch Trainer
+on a synthetic data set with evaluation and style-z serving after it.
+Phases, one line each or more:
 
 1. device: a CUDA card is required; its name and power limit (nvidia-smi);
 2. build: nvcc builds scrabblegan_torch/csrc for sm_90a; build seconds;
@@ -59,7 +60,7 @@ each or more:
 
 The 'fused' attention dataflow (the whole non-local block as one kernel,
 csrc/fused_block_fwd.cu) adds four phases, each run after the phase of the
-same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10):
+same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 15-17):
 
 11. the fused kernel vs its plain version (the composition on the plain
    core) at G's B3 and D's and W's B1 shapes for L = 1, 5, 10, a ragged
@@ -81,6 +82,32 @@ same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10):
 14. the train CLI with --workdir under 'fused' (3 steps, then 2 more that
    resume at step 3; checkpoints and the EMA export with standing stats) and
    the inference CLI serving the export with --model-dir.
+
+The slice of the data path, the epoch Trainer and evaluation adds three
+phases, run last (after phase 10):
+
+15. data: `make_synthetic_dataset(style='script', samples_per_bucket=64)`
+   writes 640 words in 10 buckets and 12 style images; the port's PNG
+   reader reads every file back; `BucketedDataset` and `load_style_images`
+   load them; the times of each;
+16. the Trainer on the card through the train CLI's Trainer mode
+   (`--synthetic --epochs 2 --batches-per-epoch 20`, configs/recommended.json:
+   padded, EMA 0.999, 100 standing-statistics batches, the gate at 64
+   samples, batch 16), then 1 more epoch that resumes at step 40: the
+   attention launches against the count derived from the config (7 forward
+   and 7 backward a step; a forward for each standing-statistics batch, the
+   grid and each gate chunk), finite metrics, the JAX Trainer's artifact set
+   (16-column summaries, grids read back, the GIF, checkpoints 20/40/60, G
+   and R exports 1-3, quality_<epoch>.json and latest_good), the warm
+   epoch's steps/s beside phase 10's step-function median, the host
+   fetches a step in the batch loop (`.cpu()`, `.item()`, `.tolist()`,
+   `float()` on a tensor counted), the wall time of each epoch's artifacts;
+17. `python -m scrabblegan_torch.evaluate --bucket all` on that workdir
+   (finite rFID and CER for each of the 10 buckets), `infer --export auto`
+   with the style z source from a phase-15 style image and from a blank
+   page (the PNG read back), and G with style z at batch 1024, len 5, bf16
+   under 'nhwc1' and 'fused' (one launch of the core or of the fused
+   kernel, agreement within G_TOL_PLAIN).
 
 The dataflow is set through $SCRABBLEGAN_ATTN_DATAFLOW, which the blocks
 read at each call; it is 'nhwc1' outside the 'fused' phases. Each launch
@@ -517,7 +544,7 @@ def time_backward(attention, lib, gen, card: str) -> dict:
     return out
 
 
-def time_train_steps(runs: dict, make_train_step, card: str) -> None:
+def time_train_steps(runs: dict, make_train_step, card: str) -> dict:
     """Phase 10: steps/s of both configurations on the kernels and on the
     plain cores, in turns plain, kernel, kernel, plain of TIME_STEPS steps
     each (the batches in a cycle), after two warm-up steps. A CUDA event is
@@ -525,7 +552,9 @@ def time_train_steps(runs: dict, make_train_step, card: str) -> None:
     the end of the turn, so each step's time is the interval between its
     events, whichever of the host and the device sets the pace. Printed per
     core: the window means of its turns, and the median and the 10th and
-    90th percentiles of its per-step times."""
+    90th percentiles of its per-step times. Returns {config: the kernel
+    core's median ms a step}."""
+    medians = {}
     for name, (kstate, pstate, batches, kcfg, pcfg) in runs.items():
         steps = {"kernel": (kstate, make_train_step(kcfg, kstate.models)),
                  "plain": (pstate, make_train_step(pcfg, pstate.models))}
@@ -546,6 +575,7 @@ def time_train_steps(runs: dict, make_train_step, card: str) -> None:
             ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
             window[core].append(sum(ms) / TIME_STEPS)
             per_step[core] += ms
+        medians[name] = float(np.median(per_step["kernel"]))
         for core in window:
             p10, p50, p90 = np.percentile(per_step[core], [10, 50, 90]).tolist()
             say("10 time train step", card=card, config=name, core=core, batch=TRAIN_BATCH,
@@ -553,6 +583,7 @@ def time_train_steps(runs: dict, make_train_step, card: str) -> None:
                 window_ms_per_step=window[core], median_ms_per_step=p50,
                 p10_p90_ms_per_step=[p10, p90], median_steps_per_s=1e3 / p50,
                 mean_steps_per_s=1e3 * len(per_step[core]) / sum(per_step[core]))
+    return medians
 
 
 def profile_train_steps(runs: dict, make_train_step, card: str) -> None:
@@ -959,6 +990,252 @@ def check_workdir_cli(attention, fused_block, train_main, infer_main, load_confi
     return train_launches
 
 
+# ---- phases 15-17: the data path, the epoch Trainer, evaluate and serve ------
+
+TRAINER_EPOCHS, TRAINER_BATCHES = 2, 20  # then 1 epoch more, resumed at step 40
+FETCHES = ("cpu", "item", "tolist", "__float__")  # the calls that copy a tensor to the host
+
+
+class HostFetches:
+    """Counts the calls of FETCHES on tensors while `on` (the Trainer's
+    batch loops: its state set-up and epoch artifacts are paused)."""
+
+    def __init__(self, loop):
+        self.count, self.on = 0, False
+        self._saved = []
+        for name in FETCHES:
+            original = getattr(torch.Tensor, name)
+            self._saved.append((torch.Tensor, name, original))
+
+            def wrapper(t, *a, _original=original, **k):
+                if self.on:
+                    self.count += 1
+                return _original(t, *a, **k)
+            setattr(torch.Tensor, name, wrapper)
+        for name in ("init_state", "save_epoch_artifacts"):
+            original = getattr(loop.Trainer, name)
+            self._saved.append((loop.Trainer, name, original))
+
+            def paused(trainer, *a, _original=original, **k):
+                self.on = False
+                try:
+                    return _original(trainer, *a, **k)
+                finally:
+                    self.on = True
+            setattr(loop.Trainer, name, paused)
+
+    def restore(self) -> None:
+        for owner, name, original in self._saved:
+            setattr(owner, name, original)
+
+
+def check_data(workdir: Path) -> tuple[Path, dict]:
+    """Phase 15; returns the data set's root and the style image paths."""
+    from scrabblegan_torch.config import load_config
+    from scrabblegan_torch.data.images import read_grayscale
+    from scrabblegan_torch.data.loaders import BucketedDataset, load_style_images
+    from scrabblegan_torch.data.synthetic import make_synthetic_dataset
+
+    root = workdir / "data15"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    read_dir, _, style_dir = make_synthetic_dataset(str(root), samples_per_bucket=64,
+                                                    style="script")
+    write_s = time.perf_counter() - t0
+    pngs = sorted(root.rglob("*.png"))
+    t0 = time.perf_counter()
+    shapes = {read_grayscale(str(p)).shape for p in pngs}
+    read_s = time.perf_counter() - t0
+    if len(pngs) != 640 + 12 or any(h != 32 for h, _ in shapes):
+        raise AssertionError(f"synthetic data set: {len(pngs)} PNGs, shapes {shapes}")
+    cfg = load_config(None)
+    t0 = time.perf_counter()
+    ds = BucketedDataset(read_dir, cfg.io.input_dim, cfg.io.bucket_size)
+    dataset_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, validate = load_style_images(style_dir, cfg.io.input_dim)
+    style_s = time.perf_counter() - t0
+    if ds.num_samples != 640 or (len(train), len(validate)) != (11, 1):
+        raise AssertionError(f"loaded {ds.num_samples} words, style {len(train)}/{len(validate)}")
+    say("15 data", words=ds.num_samples, buckets=len(ds.nonempty), style_images=12,
+        write_s=write_s, png_read_s=read_s, pngs=len(pngs), bucketed_dataset_load_s=dataset_s,
+        style_load_s=style_s, style_split=[len(train), len(validate)])
+    return root, sorted(Path(style_dir).glob("*.png"))
+
+
+def check_trainer(attention, fused_block, workdir: Path, step_median_ms: float) -> dict:
+    """Phase 16: the train CLI's Trainer mode on the card with
+    configs/recommended.json (padded, EMA 0.999, standing statistics, the
+    gate at 64 samples, batch 16): 2 epochs of 20 batches, then 1 more that
+    resumes at step 40. Returns the launches of the two runs."""
+    from scrabblegan_torch.config import load_config
+    from scrabblegan_torch.data.images import read_grayscale
+    from scrabblegan_torch.train import loop
+    from scrabblegan_torch.train import main as train_main
+
+    cfg = load_config(str(ROOT / "configs" / "recommended.json"))
+    standing = cfg.optimizer.ema_standing_stat_batches
+    gate_chunks = -(-cfg.io.export_quality_samples // cfg.shared.num_gen)
+    per_epoch_fwd = TRAINER_BATCHES * FWD_PER_STEP + standing + 1 + gate_chunks
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainers = []
+    train = loop.Trainer.train
+
+    def recorded(trainer, *a, **k):
+        trainers.append(trainer)
+        return train(trainer, *a, **k)
+    loop.Trainer.train = recorded
+    fetches = HostFetches(loop)
+    launches, logs = [], []
+    try:
+        for epochs in (TRAINER_EPOCHS, TRAINER_EPOCHS + 1):
+            torch.cuda.synchronize()
+            reset_counts(attention, fused_block)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = train_main(["--device", "cuda", "--synthetic", "--workdir", str(workdir),
+                                 "--epochs", str(epochs),
+                                 "--batches-per-epoch", str(TRAINER_BATCHES)])
+            torch.cuda.synchronize()
+            logs.append(out.getvalue())
+            launches.append((attention.launches, attention.bwd_launches, fused_block.launches))
+            if rc != 0:
+                raise AssertionError(f"train exited {rc}:\n{logs[-1][-2000:]}")
+            if epochs == TRAINER_EPOCHS:
+                first_run_fetches = fetches.count
+    finally:
+        fetches.restore()
+        loop.Trainer.train = train
+    for run_epochs, (fwd, bwd, fused) in zip((TRAINER_EPOCHS, 1), launches):
+        want = (run_epochs * per_epoch_fwd, run_epochs * TRAINER_BATCHES * BWD_PER_STEP, 0)
+        if (fwd, bwd, fused) != want:
+            raise AssertionError(f"Trainer launches (fwd, bwd, fused) {(fwd, bwd, fused)}, "
+                                 f"derived {want}")
+    resumed_at = TRAINER_EPOCHS * TRAINER_BATCHES
+    if "resumed" in logs[0] or f"resumed from checkpoint at step {resumed_at}" not in logs[1]:
+        raise AssertionError(f"Trainer resume:\n{logs[1][-2000:]}")
+    out_dir = workdir / "output"
+    rows = (out_dir / "batch_summary.txt").read_text().splitlines()
+    values = np.array([[float(v) for v in r.split(";")] for r in rows[1:]])
+    steps = (TRAINER_EPOCHS + 1) * TRAINER_BATCHES
+    if (rows[0].count(";") != 15 or values.shape != (steps, 16) or not np.isfinite(values).all()
+            or len((out_dir / "batch_summary.csv").read_text().splitlines()) != steps + 1
+            or len((out_dir / "epoch_summary.txt").read_text().splitlines()) != 4):
+        raise AssertionError(f"summaries: {values.shape}, finite {np.isfinite(values).all()}")
+    grids = [read_grayscale(str(out_dir / f"image_at_epoch_{e:04d}.png")).shape
+             for e in (1, 2, 3)]
+    ckpts = sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
+    exports = {net: sorted(p.name for p in (workdir / "model" / net).iterdir()
+                           if p.name.isdigit()) for net in ("generator", "recognizer")}
+    gens = workdir / "model" / "generator"
+    flags = {e: json.loads((gens / f"quality_{e}.json").read_text())["flag"] for e in (1, 2, 3)}
+    good = [e for e, f in flags.items() if f == "ok"]
+    link = gens / "latest_good"
+    if (ckpts != [TRAINER_BATCHES * e for e in (1, 2, 3)] or exports != {n: ["1", "2", "3"] for n in exports}
+            or (out_dir / "biggan.gif").read_bytes()[:6] != b"GIF89a"
+            or (good and os.readlink(link) != str(max(good))) or (not good and link.exists())):
+        raise AssertionError(f"artifacts: checkpoints {ckpts}, exports {exports}, "
+                             f"flags {flags}")
+    first = trainers[0]
+    warm_s = first.epoch_secs[1]
+    say("16 trainer", card=card_line(), config="configs/recommended.json", batch=TRAIN_BATCH,
+        epochs_then_resumed=[TRAINER_EPOCHS, 1], batches_per_epoch=TRAINER_BATCHES,
+        launches_per_run_fwd_bwd_fused=launches,
+        derived_fwd_per_epoch=f"{TRAINER_BATCHES} x {FWD_PER_STEP} + {standing} standing "
+                              f"+ 1 grid + {gate_chunks} gate = {per_epoch_fwd}",
+        fwd_per_step=FWD_PER_STEP, bwd_per_step=BWD_PER_STEP,
+        metrics_finite=True, epoch_secs=[t.epoch_secs for t in trainers],
+        warm_epoch_steps_per_s=TRAINER_BATCHES / warm_s,
+        step_function_median_ms=step_median_ms,
+        loop_ms_per_step=1e3 * warm_s / TRAINER_BATCHES,
+        loop_host_cost_ms_per_step=1e3 * warm_s / TRAINER_BATCHES - step_median_ms,
+        host_fetches_first_run=first_run_fetches,
+        host_fetches_per_step=first_run_fetches / (TRAINER_EPOCHS * TRAINER_BATCHES),
+        artifact_secs=[t.artifact_secs for t in trainers], checkpoints=ckpts,
+        exports=exports, gate_flags=flags, grids=grids)
+    return {"fwd": sum(x[0] for x in launches), "bwd": sum(x[1] for x in launches)}
+
+
+def check_evaluate_and_serve(attention, fused_block, workdir: Path, style_pngs: list,
+                             gen) -> dict:
+    """Phase 17: evaluate and the style-source infer on phase 16's workdir;
+    then G with style z at batch 1024, len 5, bf16 under 'nhwc1' and
+    'fused'. Returns the launches of each path."""
+    from scrabblegan_torch.config import load_config
+    from scrabblegan_torch.convert import fake_flax_variables, generator_from_flax
+    from scrabblegan_torch.data.images import read_grayscale
+    from scrabblegan_torch.data.loaders import load_style_images
+    from scrabblegan_torch.evaluate import main as evaluate_main
+    from scrabblegan_torch.infer import main as infer_main
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts(attention, fused_block)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = evaluate_main(["--workdir", str(workdir), "--bucket", "all"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = attention.launches
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    if rc != 0 or len(lines) != 10 or not all(
+            np.isfinite([r["rfid"], r["cer_real"], r["cer_gen"]]).all() for r in lines):
+        raise AssertionError(f"evaluate: rc {rc}, {out.getvalue()[-2000:]}")
+    if attention.bwd_launches or fused_block.launches or eval_launches == 0:
+        raise AssertionError(f"evaluate launches {eval_launches}")
+    say("17 evaluate", buckets=[r["bucket"] for r in lines], rfid=[r["rfid"] for r in lines],
+        cer_real=[r["cer_real"] for r in lines], cer_gen=[r["cer_gen"] for r in lines],
+        seconds=eval_s, fwd_launches=eval_launches)
+
+    served = {}
+    infer_launches = 0
+    for what, extra in (("style image", ["--style-image", str(style_pngs[0])]),
+                        ("blank page", [])):
+        png = OUT_DIR / f"infer_style_{len(served)}.png"
+        before = attention.launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            infer_main(["--model-dir", str(workdir / "model"), "--export", "auto", "--device",
+                        "cuda", "--out", str(png), *extra])
+        page = read_grayscale(str(png))
+        n, width = 10, 16 * len("machinelearning")
+        if (page.shape != (n * (32 + 4) + 4, width + 8) or "z style" not in out.getvalue()
+                or attention.launches != before + 1):
+            raise AssertionError(f"infer {what}: {page.shape}, {out.getvalue()[-500:]}")
+        infer_launches += 1
+        served[what] = page
+    if np.array_equal(*served.values()):
+        raise AssertionError("infer: the style image did not change the images")
+    say("17 infer style", pages={k: v.shape for k, v in served.items()},
+        fwd_launches=infer_launches, log=out.getvalue().strip().splitlines())
+
+    cfg = load_config(None, {"shared.dtype": "bfloat16", "shared.trunk_dtype": "bfloat16"})
+    g = generator_from_flax(fake_flax_variables(cfg, seed=3), cfg, "cuda")
+    train, _ = load_style_images(str(Path(style_pngs[0]).parent), cfg.io.input_dim)
+    bank = torch.from_numpy(np.stack(train)).to("cuda")
+    style = bank[torch.randint(0, len(train), (BATCH,), generator=gen, device="cuda")][:, None]
+    labels = torch.randint(0, 52, (BATCH, 5), generator=gen, device="cuda")
+    images, counts = {}, {}
+    with torch.inference_mode():
+        for flow in ("nhwc1", "fused"):
+            with dataflow(flow):
+                torch.cuda.synchronize()
+                reset_counts(attention, fused_block)
+                images[flow] = g(labels, style_imgs=style)
+                torch.cuda.synchronize()
+                counts[flow] = (attention.launches, fused_block.launches)
+    for flow in images:
+        check_images(images[flow], BATCH, 5)
+    if counts != {"nhwc1": (1, 0), "fused": (0, 1)}:
+        raise AssertionError(f"style-z G launches (core, fused): {counts}")
+    err = check_close("style-z G 'fused' vs 'nhwc1'", images["fused"], images["nhwc1"],
+                      G_TOL_PLAIN)
+    say("17 generator style z", batch=BATCH, length=5, dtype="bfloat16",
+        launches_core_fused=counts, max_abs_err_fused_vs_nhwc1=err, tol=G_TOL_PLAIN)
+    return {"evaluate": eval_launches, "infer": infer_launches, "style_nhwc1": 1,
+            "style_fused": 1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1150,8 +1427,20 @@ def main() -> int:
 
     # 10. times
     bwd_rows = time_backward(attention, lib, gen, card)
-    time_train_steps(runs, make_train_step, card)
+    step_medians = time_train_steps(runs, make_train_step, card)
     profile_train_steps(runs, make_train_step, card)
+
+    # 15. the data path: the synthetic data set written, read and loaded
+    _, style_pngs = check_data(OUT_DIR)
+
+    # 16. the epoch Trainer through the train CLI, then resumed
+    trainer_dir = OUT_DIR / "trainer"
+    trainer_launches = check_trainer(attention, fused_block, trainer_dir,
+                                     step_medians["recommended (padded)"])
+
+    # 17. evaluate, the style-source infer, style-z G under both dataflows
+    serve_launches = check_evaluate_and_serve(attention, fused_block, trainer_dir, style_pngs,
+                                              gen)
 
     kernel_ms, plain_ms = core_ms[5]  # the same shape: batch 1024
     bwd_row = bwd_rows[("G B3 len 5", torch.float32, TRAIN_BATCH)]
@@ -1162,6 +1451,10 @@ def main() -> int:
          "source": "scrabblegan_torch/csrc/attention_fwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:111",
          "launches": train_launches["fwd"], "serving_launches": main_path_launches,
+         "trainer_launches": trainer_launches["fwd"],
+         "evaluate_launches": serve_launches["evaluate"],
+         "infer_style_launches": serve_launches["infer"],
+         "style_serving_launches": serve_launches["style_nhwc1"],
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), core_bound(BATCH, 2560, 640, torch.bfloat16,
@@ -1170,7 +1463,8 @@ def main() -> int:
         {"name": "attention_bwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/attention_bwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:195",
-         "launches": train_launches["bwd"], "max_abs_err": bwd_err,
+         "launches": train_launches["bwd"], "trainer_launches": trainer_launches["bwd"],
+         "max_abs_err": bwd_err,
          "shape": "G B3 len 5, batch 16, f32", "ms": bwd_row["kernel_ms"],
          **{key: bwd_row[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "device_ms", "floor_ms")},
@@ -1181,16 +1475,19 @@ def main() -> int:
          "source": "scrabblegan_torch/csrc/fused_block_fwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:333",
          "launches": fused_train, "serving_launches": fused_serving,
-         "cli_launches": fused_cli, "max_abs_err": max(fused_err.values()),
+         "cli_launches": fused_cli, "style_serving_launches": serve_launches["style_fused"],
+         "max_abs_err": max(fused_err.values()),
          "max_abs_err_by_dtype": fused_err, "ms": fused_kernel_ms, "plain_ms": fused_plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), fused_bound(BATCH, 2560, 640, torch.bfloat16))),
          "library_ms": None}]
     print(json.dumps({"kernels": rows}))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "optax", "orbax", "scrabblegan_tpu"))
+        "jax", "jaxlib", "flax", "optax", "orbax", "scrabblegan_tpu", "cv2", "PIL",
+        "matplotlib", "imageio"))
     if loaded:
-        raise AssertionError(f"JAX or the JAX package was imported: {loaded[:5]}")
+        raise AssertionError(f"JAX, the JAX package or an image library was imported: "
+                             f"{loaded[:5]}")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -4,9 +4,11 @@ The JAX package `scrabblegan_tpu` is the reference: every module here names
 its JAX counterpart, loads the same weights (converted from the flax variable
 trees by `scrabblegan_torch.convert`) and is held to the JAX output by the
 `tests/test_torch_*.py` parity tests. This package imports `torch` and
-nothing of JAX, flax, optax, orbax or the JAX package itself: what it needs
-of the JAX package's framework-free host modules it holds as its own copies
-(`config`, `data.loaders`, `utils.viz`).
+nothing of JAX, flax, optax, orbax or the JAX package itself, nor cv2,
+PIL, matplotlib or imageio: what it needs of the JAX package's
+framework-free host modules it holds as its own copies (`config`, `data`,
+`train.metrics`, `eval`, `utils`), with PNG IO and resizing on numpy and
+zlib (`data.images`).
 
 Layout is NCHW throughout. The three TPU kernels run as hand-written CUDA
 kernels for sm_90a: the attention core's forward and backward

@@ -125,12 +125,14 @@ def generator_from_flax(variables: Mapping, cfg: Config,
                         device: str | torch.device = "cpu") -> Generator:
     """The port's generator for `cfg`, holding a flax generator's variables.
 
-    A style-trained export also holds the style encoder, which the noise z
-    source never runs; it is skipped, as JAX's `infer.py --z-source noise`
-    leaves it unused."""
-    kept = {c: {k: v for k, v in sub.items() if k != "style_encoder"}
-            for c, sub in variables.items()}
-    return load_flax(build_generator(cfg, device), kept)
+    With z_source='style' the style encoder is loaded with the rest. With
+    'noise' a style-trained export's style encoder is skipped: the noise z
+    source never runs it, as JAX's `infer.py --z-source noise` leaves it
+    unused."""
+    if cfg.shared.z_source != "style":
+        variables = {c: {k: v for k, v in sub.items() if k != "style_encoder"}
+                     for c, sub in variables.items()}
+    return load_flax(build_generator(cfg, device), variables)
 
 
 def fake_fill(shapes: Mapping[Path, tuple[int, ...]], seed: int = 0) -> dict:

@@ -37,8 +37,8 @@ class ModelBundle:
 
 
 def noise_config(path: str | None = None, overrides: dict | None = None) -> Config:
-    """`load_config(path, overrides)` with the noise z source, the one the
-    port serves."""
+    """`load_config(path, overrides)` with the noise z source: G from
+    (labels, z), the reference's serving path."""
     cfg = load_config(path, overrides)
     return dataclasses.replace(cfg, shared=dataclasses.replace(cfg.shared, z_source="noise"))
 

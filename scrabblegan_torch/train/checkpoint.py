@@ -70,6 +70,12 @@ def save_state(ckpt_dir: str, state: TrainState, step: int) -> str:
     return final
 
 
+def latest_step(ckpt_dir: str) -> int | None:
+    """The step of the newest complete checkpoint, or None."""
+    steps = _numbered(ckpt_dir, STATE_FILE)
+    return steps[-1] if steps else None
+
+
 def _restore_list(saved: list[torch.Tensor] | None, into: list[torch.Tensor] | None,
                   what: str) -> list[torch.Tensor] | None:
     if (saved is None) != (into is None) or (saved is not None and len(saved) != len(into)):
@@ -89,10 +95,9 @@ def restore_state(ckpt_dir: str, template: TrainState) -> tuple[TrainState | Non
     written in place); returns (template, step), or (None, 0) when there is
     no checkpoint. Raises when the checkpoint's layout differs from the
     template's, as a restore into another config's state would."""
-    steps = _numbered(ckpt_dir, STATE_FILE)
-    if not steps:
+    step = latest_step(ckpt_dir)
+    if step is None:
         return None, 0
-    step = steps[-1]
     payload = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE), map_location="cpu",
                          weights_only=True)
     for net, module in template.modules().items():

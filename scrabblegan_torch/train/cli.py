@@ -1,35 +1,48 @@
-"""Train entry point of the port: N train steps on synthetic batches.
+"""Train entry point of the port: the epoch Trainer, or N bare steps.
 
-    python -m scrabblegan_torch.train --device cuda --steps N
-        [--workdir W [--no-resume]] [--config configs/recommended.json]
-        [--set KEY=VALUE ...] [--length L] [--batch-size B] [--seed S]
-        [--init vars.npz] [--export-g g.npz]
+Trainer mode (the root train.py's flags):
 
-It builds the train state with flax's initialisers (or loads it from a
+    python -m scrabblegan_torch.train [--device cuda] [--workdir W]
+        [--config configs/recommended.json] [--set KEY=VALUE ...]
+        [--epochs E] [--batches-per-epoch N] [--no-resume] [--profile N]
+        [--synthetic | --read-dir D --style-dir S --words-file F]
+
+runs `train.loop.Trainer` on a data set: `--synthetic` first writes
+`data.synthetic.make_synthetic_dataset` under <workdir>/synthetic_data, as
+train.py does; otherwise the paths (default: the config's io.read_dir,
+io.style_dir, io.words_file) must hold a data set in the GAN-Reading
+layout (the raw-IAM converter, data/iam.py, is not ported). It writes the
+JAX Trainer's artifacts under the workdir: output/ (batch_summary.txt and
+.csv, epoch_summary.txt, image_at_epoch_NNNN.png with its labels in a
+.txt, biggan.gif), checkpoints/<step>/, model/{generator,recognizer}/<epoch>/
+with quality_<epoch>.json and the latest_good link, and config.json; it
+resumes from the newest checkpoint unless `--no-resume`.
+
+Steps mode (no data set, no counterpart in the JAX package):
+
+    python -m scrabblegan_torch.train --steps N [--device cuda]
+        [--workdir W [--no-resume]] [--config ...] [--set KEY=VALUE ...]
+        [--length L] [--batch-size B] [--seed S] [--init vars.npz]
+        [--export-g g.npz]
+
+builds the train state with flax's initialisers (or loads it from a
 flax-layout .npz, `--init`), takes N steps of `make_train_step` on seeded
-uint8 batches made with numpy in the layout of the JAX bench (bench.py),
-prints the 16 metrics of every step and, at the end, steps/s. In 'padded'
-shape mode the words are padded to `io.bucket_size` characters with true
-lengths drawn from 1..bucket_size; in 'bucketed' mode every word has
-`--length` characters. Step s draws its batch and z from a generator seeded
-with (seed, s), so a resumed run sees the batches an uninterrupted one does.
-
-With `--workdir W`, laid out as the JAX Trainer's workdir:
-- W/config.json (and a copy in the checkpoint and model directories);
-- resume from the newest checkpoint under W/<io.checkpoint_dir> unless
-  `--no-resume` (the steps then continue from the restored step);
-- the run's steps count as one epoch: the final state is saved as a full
-  checkpoint when `io.ckpt_every` > 0 (the newest three are kept);
-- at the end, G and R are exported under W/<io.model_dir> as export number
-  <step>, G with its EMA weights and standing statistics where configured,
-  the directory `python -m scrabblegan_torch.infer --model-dir` serves.
-
-`--export-g` writes G's live weights as the .npz that `infer --weights`
-serves (pass it the same `--config`/`--set`, so the shape mode matches).
-The `--init` .npz holds the four networks' flax trees under the keys 'g',
-'d', 'r' and 'w' (G, D, R, W), each {"params", "batch_stats"}, joined with
-'.' as `convert.save_flax_npz` writes them. The Trainer loop (epochs over a
-data set, sample grids, the export gate) is not ported yet.
+uint8 random-pixel batches in the layout of the JAX bench (bench.py) and
+prints the 16 metrics of every step (fetched from the device in one copy a
+step) and, at the end, steps/s. In 'padded' shape mode the words are padded
+to `io.bucket_size` characters with true lengths drawn from
+1..bucket_size; in 'bucketed' mode every word has `--length` characters.
+Step s draws its batch and z from a generator seeded with (seed, s), so a
+resumed run sees the batches an uninterrupted one does. With `--workdir W`:
+W/config.json (and a copy in the checkpoint and model directories); resume
+from the newest checkpoint unless `--no-resume`; the final state as a full
+checkpoint when `io.ckpt_every` > 0; G (EMA weights and standing statistics
+where configured) and R exported as export number <step>, which
+`python -m scrabblegan_torch.infer --model-dir` serves. `--export-g`
+writes G's live weights as the .npz that `infer --weights` serves. The
+`--init` .npz holds the four networks' flax trees under the keys 'g', 'd',
+'r' and 'w', each {"params", "batch_stats"}, joined with '.' as
+`convert.save_flax_npz` writes them.
 """
 
 from __future__ import annotations
@@ -55,27 +68,76 @@ from scrabblegan_torch.train.step import METRIC_NAMES, make_train_step
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "recommended.json"
 
 
+STEPS_ONLY = ("length", "batch_size", "init", "export_g")
+
+
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="Train steps of the PyTorch port on synthetic "
-                                            "batches.")
+    p = argparse.ArgumentParser(description="Train the PyTorch port: the epoch Trainer on a "
+                                            "data set, or --steps N on random batches.")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--steps", type=int, default=10, help="steps this run takes")
+    p.add_argument("--steps", type=int, default=None,
+                   help="steps mode: take N steps on random-pixel batches, no data set")
+    p.add_argument("--epochs", type=int, default=None, help="default: shared.epochs")
+    p.add_argument("--batches-per-epoch", type=int, default=None,
+                   help="default: io.buf_size / shared.batch_size + 1")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="trace the first N Trainer steps with torch.profiler (written to "
+                        "<workdir>/output/trace) and print steps/s")
+    p.add_argument("--synthetic", action="store_true",
+                   help="write a synthetic data set under <workdir>/synthetic_data and "
+                        "train on it")
+    p.add_argument("--read-dir", default=None, help="bucketed data set (default io.read_dir)")
+    p.add_argument("--style-dir", default=None, help="style images (default io.style_dir)")
+    p.add_argument("--words-file", default=None, help="lexicon (default io.words_file)")
     p.add_argument("--config", default=str(DEFAULT_CONFIG) if DEFAULT_CONFIG.is_file() else None,
                    help="JSON config (default: configs/recommended.json, as train.py; "
                         "'none' for the library defaults)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
-    p.add_argument("--length", type=int, default=5,
+    p.add_argument("--length", type=int, default=None,
                    help="word length of every batch in 'bucketed' shape mode")
     p.add_argument("--batch-size", type=int, default=None,
                    help="default: shared.batch_size")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--init", default=None, help="flax-layout .npz of the four networks")
     p.add_argument("--workdir", default=None,
-                   help="run directory: config, checkpoints (resume) and exports")
+                   help="run directory: config, checkpoints (resume) and exports "
+                        "(default io.base_path in Trainer mode)")
     p.add_argument("--no-resume", action="store_true",
                    help="start from the initial state even if --workdir holds a checkpoint")
     p.add_argument("--export-g", default=None, help="write G's live weights to this .npz")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.steps is None:
+        given = [f"--{k.replace('_', '-')}" for k in STEPS_ONLY if getattr(args, k) is not None]
+        if given:
+            p.error(f"{', '.join(given)} belong to the --steps mode")
+    elif args.synthetic or args.epochs is not None or args.batches_per_epoch is not None:
+        p.error("--synthetic, --epochs and --batches-per-epoch belong to the Trainer mode")
+    return args
+
+
+def train_epochs(args, cfg, device) -> int:
+    """Trainer mode: load or write the data set, run the Trainer."""
+    from scrabblegan_torch.train.loop import Trainer
+
+    workdir = args.workdir or cfg.io.base_path
+    trainer = Trainer(cfg, workdir=workdir, device=device)
+    if args.synthetic:
+        from scrabblegan_torch.data.synthetic import make_synthetic_dataset
+
+        read_dir, words_file, style_dir = make_synthetic_dataset(
+            os.path.join(workdir, "synthetic_data"))
+    else:
+        read_dir = args.read_dir or cfg.io.read_dir
+        style_dir, words_file = args.style_dir, args.words_file
+        if not os.path.exists(read_dir):
+            print(f"no data set at {read_dir}: the raw-IAM converter (data/iam.py) is not "
+                  "ported; convert with the JAX package's train.py, or pass --synthetic",
+                  file=sys.stderr)
+            return 2
+    trainer.load_data(read_dir=read_dir, style_dir=style_dir, words_file=words_file)
+    trainer.train(epochs=args.epochs, batches_per_epoch=args.batches_per_epoch,
+                  resume=not args.no_resume, profile_steps=args.profile)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -83,6 +145,9 @@ def main(argv=None) -> int:
     config = None if args.config in (None, "none") else args.config
     cfg = load_config(config, dict(kv.split("=", 1) for kv in args.set))
     device = resolve_device(args.device)
+    if args.steps is None:
+        return train_epochs(args, cfg, device)
+    length = args.length or 5
     if args.init:
         tree = load_flax_npz(args.init)
         state = state_from_flax(cfg, {n: tree[n]["params"] for n in "gdrw"},
@@ -105,10 +170,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for i in range(args.steps):
         rng = np.random.default_rng([args.seed, state.step])
-        batch = synthetic_batch(cfg, batch_size, args.length, rng)
+        batch = synthetic_batch(cfg, batch_size, length, rng)
         metrics = step(state, batch, synthetic_noise(cfg, batch_size, rng))
-        print(f"step {state.step}: " + " ".join(f"{k}={float(metrics[k]):.4f}"
-                                                for k in METRIC_NAMES), flush=True)
+        values = torch.stack([metrics[k] for k in METRIC_NAMES]).tolist()  # one fetch
+        print(f"step {state.step}: " + " ".join(f"{k}={v:.4f}"
+                                                for k, v in zip(METRIC_NAMES, values)),
+              flush=True)
         if i == 0:
             t0 = time.perf_counter()  # the first step pays the kernels' build
     if device.type == "cuda":
@@ -120,7 +187,7 @@ def main(argv=None) -> int:
         if cfg.io.ckpt_every > 0:
             print(f"saved checkpoint {checkpoint.save_state(ckpt_dir, state, state.step)}",
                   flush=True)
-        feed = synthetic_feed(cfg, batch_size, args.length, seed=args.seed + 1)
+        feed = synthetic_feed(cfg, batch_size, length, seed=args.seed + 1)
         for name, path in export_models(cfg, state, model_dir, feed).items():
             print(f"exported {name} to {path}", flush=True)
     if args.export_g:

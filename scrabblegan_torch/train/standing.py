@@ -59,19 +59,30 @@ def standing_stats(cfg: Config, state: TrainState, batches: Iterable[tuple[dict,
     return stats
 
 
-def export_models(cfg: Config, state: TrainState, model_dir: str,
-                  batches: Iterable[tuple[dict, object]]) -> dict[str, str]:
-    """Export G and, when the config trains one, R as export number
-    `state.step`. G is served with its EMA weights when the EMA is on, with
-    standing statistics from `batches` when they are configured, as the JAX
-    Trainer's exports are; returns {'generator': dir, 'recognizer': dir}."""
+def serving_override(state: TrainState, stats: dict[str, torch.Tensor] | None
+                     ) -> dict[str, torch.Tensor]:
+    """The entries of G's state_dict that an export serves in place of the
+    live ones: the EMA parameters when the EMA is on, and `stats` (standing
+    statistics) when given."""
     G = state.models.generator
     override: dict[str, torch.Tensor] = {}
     if state.g_ema is not None:
         override.update(zip((name for name, _ in G.named_parameters()), state.g_ema))
-        override.update(standing_stats(cfg, state, batches) or {})
-    out = {"generator": checkpoint.save_generator(model_dir, to_flax(G, override),
-                                                  state.step, cfg)}
+        override.update(stats or {})
+    return override
+
+
+def export_models(cfg: Config, state: TrainState, model_dir: str,
+                  batches: Iterable[tuple[dict, object]]) -> dict[str, str]:
+    """Export G and, when the config trains one, R as export number
+    `state.step` (the train CLI's `--steps` mode). G is served with its EMA
+    weights when the EMA is on, with standing statistics from `batches`
+    when they are configured, as the JAX Trainer's exports are; returns
+    {'generator': dir, 'recognizer': dir}."""
+    stats = standing_stats(cfg, state, batches) if state.g_ema is not None else None
+    out = {"generator": checkpoint.save_generator(
+        model_dir, to_flax(state.models.generator, serving_override(state, stats)),
+        state.step, cfg)}
     if cfg.shared.use_recognizer:
         out["recognizer"] = checkpoint.save_recognizer(
             model_dir, to_flax(state.models.recognizer), state.step, cfg)

@@ -5,9 +5,10 @@
   taken at once (every tensor of the two step-3 checkpoints and of the two
   exports); at full width, batch 2, len 2, G EMA on with 2 standing-stat
   batches;
-- `python -m scrabblegan_torch.infer --model-dir` serves the newest export:
-  the images of G under its EMA weights with standing statistics computed
-  here by committing train-mode forwards into a copy of G;
+- `python -m scrabblegan_torch.infer --model-dir --z-source noise` serves
+  the newest export: the images of G under its EMA weights with standing
+  statistics computed here by committing train-mode forwards into a copy of
+  G;
 - `save_state` keeps the newest three, writes atomically, and
   `restore_state` refuses a state of another layout; the newest complete
   export is found."""
@@ -102,8 +103,9 @@ def test_resume_is_bitwise_equal_to_an_uninterrupted_run(runs):
 def test_infer_model_dir_serves_the_ema_export(runs, tmp_path):
     root, cfg, _ = runs
     npy = tmp_path / "cab.npy"
+    # the run trained G with the style z source; served here with noise z
     assert infer.main(["--model-dir", str(root / "B" / "model"), "--word", "cab", "-n", "2",
-                       "--device", "cpu", "--out", str(npy)]) == 0
+                       "--z-source", "noise", "--device", "cpu", "--out", str(npy)]) == 0
     served = np.load(npy)
 
     tree = convert.load_flax_npz(str(root / "vars.npz"))

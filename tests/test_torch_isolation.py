@@ -1,6 +1,7 @@
 """The port stands alone: no module of `scrabblegan_torch/` and no line of
 `chip_smoke.py` imports JAX, flax, optax, orbax or the JAX package
-`scrabblegan_tpu` (the card's machine has none of them), and the port's own
+`scrabblegan_tpu`, nor cv2, PIL, matplotlib or imageio (the card's machine
+has none of them), and the port's own
 copy of the config loads every file and override to the tree the JAX
 package's loader builds."""
 
@@ -21,6 +22,7 @@ from scrabblegan_torch.data import loaders as port_loaders
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("scrabblegan_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+IMAGE_LIBS = ("cv2", "PIL", "matplotlib", "imageio")  # not even imported lazily
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in (ROOT / "scrabblegan_torch").rglob("*.py")) + ["chip_smoke.py"]
 
@@ -44,12 +46,17 @@ def test_no_jax_import_in_the_port(source):
     assert not imported_roots(ROOT / source) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("source", SOURCES)
+def test_no_image_library_import_in_the_port(source):
+    assert not imported_roots(ROOT / source) & set(IMAGE_LIBS)
+
+
 def test_every_port_module_imports_with_jax_refused():
     """A fresh interpreter whose import system refuses the forbidden names
-    imports every module of the port."""
+    and the image libraries imports every module of the port."""
     code = f"""
 import importlib, pkgutil, sys
-FORBIDDEN = {FORBIDDEN!r}
+FORBIDDEN = {FORBIDDEN + IMAGE_LIBS!r}
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
