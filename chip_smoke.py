@@ -5,8 +5,10 @@ Drives the port's paths at the full widths of the repo's networks, with
 random weights made from a seed, through the hand-written attention CUDA
 kernels: the serving path, the generator from (labels, z) to word images
 (vocab 52, filter bank (32, 8192), channels 512/256/128/64, bf16, noise z),
-the four-network train step (G, D, R, W at batch 16), and the epoch Trainer
-on a synthetic data set with evaluation and style-z serving after it.
+the four-network train step (G, D, R, W at batch 16), eager and as CUDA
+graphs, the epoch Trainer on a synthetic data set with evaluation and
+style-z serving after it, and the real-data campaign config on a raw IAM
+tree it converts.
 Phases, one line each or more:
 
 1. device: a CUDA card is required; its name and power limit (nvidia-smi);
@@ -44,15 +46,17 @@ Phases, one line each or more:
    gradients, updated parameters) against the same step on the plain cores,
    both under cuDNN's deterministic algorithms, so that two runs agree;
    one float32 step at batch 2, len 2 on the card against the CPU port;
-9. the train CLI (3 steps, export G) and the inference CLI serving the
-   export with noise z;
+9. the train CLI (6 steps as CUDA graphs: two eager warm-up steps, the
+   capture, replays; its steps/s over the last 3; export G) and the
+   inference CLI serving the export with noise z;
 10. times: the backward kernels (D/W B1 in bfloat16 and G B3 in float32 at
    batch 16 and 256, G B3 in bfloat16 at batch 256 and 1024; len 5 and 10)
    by CUDA events around eager calls and, from a profiler trace, on the
    device alone per kernel, with the plan's grids, beside the plain
    backward, the library's backward, the bound and the floor of as many
-   empty launches; the train steps/s on the kernels and on the plain cores
-   (four turns of 50 steps; window means and the median of per-step times),
+   empty launches; the eager train steps/s on the kernels and on the plain
+   cores (four turns of 20 steps, 50 before phase 18 took their time;
+   window means and the median of per-step times),
    and a profiler trace of 5 steps (device busy share, kernel launches a
    step, top kernel classes, the attention kernels' share, backward calls
    whose cotangent had to be copied), each printed with the card's name and
@@ -60,7 +64,7 @@ Phases, one line each or more:
 
 The 'fused' attention dataflow (the whole non-local block as one kernel,
 csrc/fused_block_fwd.cu) adds four phases, each run after the phase of the
-same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 15-17):
+same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 18, 15-17, 19):
 
 11. the fused kernel vs its plain version (the composition on the plain
    core) at G's B3 and D's and W's B1 shapes for L = 1, 5, 10, a ragged
@@ -83,8 +87,34 @@ same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 15-17):
    resume at step 3; checkpoints and the EMA export with standing stats) and
    the inference CLI serving the export with --model-dir.
 
+The captured step adds phase 18, run after phase 10:
+
+18. the train step as CUDA graphs (`make_chunked_train_step`, train/graphs.py)
+   at batch 16, full width, for both configurations of phase 8 under
+   'nhwc1': the graph's two eager warm-up steps, then K = 1 and K = 4 steps
+   a call (the capture and K replays), against as many eager steps from the
+   same start, under cuDNN's deterministic algorithms, at phase 8's
+   tolerances, and whether they are bitwise equal; the launches of each
+   call and of K = 4 more replays (7 forward and 7 backward a step,
+   exactly: the counts derive from the steps alone); each graph's capture
+   seconds and pool bytes, the replay's and the eager step's peak memory;
+   ms a step (CUDA events around 50 calls of K = 1 and 12 of K = 4:
+   median, p10-p90) beside phase 10's eager median, a profiler trace of 5
+   replays (device busy share, kernel nodes a step, and the attention
+   kernels' nodes a replay, which must equal the launches the capture
+   counted), and the CTC as a graph of its own at the step's shapes (ms and
+   kernel nodes a call, its share of the step; first its gradient, bitwise
+   the same over 11 eager calls); then bucketed mode with
+   'independent' pairing, three (real, fake) length pairs warmed up,
+   captured in one shared pool and replayed out of order against the eager
+   steps; one K = 1 capture under 'fused' against
+   the eager 'fused' step (7 fused, 7 core forward and 7 core backward
+   launches a replay); one `shared.remat` capture against the plain eager
+   step (8 forward launches a step: the backward recomputes G's B3), and
+   the eager peak memory with and without remat.
+
 The slice of the data path, the epoch Trainer and evaluation adds three
-phases, run last (after phase 10):
+phases, run last (after phase 18):
 
 15. data: `make_synthetic_dataset(style='script', samples_per_bucket=64)`
    writes 640 words in 10 buckets and 12 style images; the port's PNG
@@ -93,13 +123,16 @@ phases, run last (after phase 10):
 16. the Trainer on the card through the train CLI's Trainer mode
    (`--synthetic --epochs 2 --batches-per-epoch 20`, configs/recommended.json:
    padded, EMA 0.999, 100 standing-statistics batches, the gate at 64
-   samples, batch 16), then 1 more epoch that resumes at step 40: the
-   attention launches against the count derived from the config (7 forward
-   and 7 backward a step; a forward for each standing-statistics batch, the
-   grid and each gate chunk), finite metrics, the JAX Trainer's artifact set
+   samples, batch 16), then 1 more epoch that resumes at step 40, on the
+   captured step (one graph a run, padded mode; its first two steps eager):
+   the attention launches against the count derived from the config (7
+   forward and 7 backward a step; a forward for each standing-statistics
+   batch, the grid and each gate chunk), finite
+   metrics, the JAX Trainer's artifact set
    (16-column summaries, grids read back, the GIF, checkpoints 20/40/60, G
    and R exports 1-3, quality_<epoch>.json and latest_good), the warm
-   epoch's steps/s beside phase 10's step-function median, the host
+   epoch's steps/s beside phase 10's eager and phase 18's captured step
+   medians, the host
    fetches a step in the batch loop (`.cpu()`, `.item()`, `.tolist()`,
    `float()` on a tensor counted), the wall time of each epoch's artifacts;
 17. `python -m scrabblegan_torch.evaluate --bucket all` on that workdir
@@ -107,13 +140,24 @@ phases, run last (after phase 10):
    with the style z source from a phase-15 style image and from a blank
    page (the PNG read back), and G with style z at batch 1024, len 5, bf16
    under 'nhwc1' and 'fused' (one launch of the core or of the fused
-   kernel, agreement within G_TOL_PLAIN).
+   kernel, agreement within G_TOL_PLAIN);
+19. configs/iam_campaign.json (padded, EMA 0.999, 'independent' pairing,
+   io.stall_timeout_s 900: the stall watchdog on) through the train CLI on a
+   raw IAM tree fabricated from a seed (300 words of random sizes written
+   with the port's PNG writer, a words.txt with 'err' lines and
+   non-alphabetic words), which the first run converts; the Trainer at full
+   width, cut in depth to 1 epoch of 8 batches: exit 0, the launches
+   derived from the config, the watchdog's beats and one grace at the
+   start, one a captured shape and one before the first artifacts, its
+   heartbeat file touched.
 
 The dataflow is set through $SCRABBLEGAN_ATTN_DATAFLOW, which the blocks
 read at each call; it is 'nhwc1' outside the 'fused' phases. Each launch
 count is set to 0 just before a path runs and read just after it.
 
-Then one JSON line {"kernels": [...]}: per kernel its launches on the paths,
+Then one JSON line {"kernels": [...]}: per kernel its launches on the
+main path (`launches`: phase 18's K = 4 replays; for the fused kernel its
+'fused' replay) and on the other paths,
 its largest error against the plain version, its ms, the plain version's ms,
 the least time the card could take for the same work (bound_ms: the largest
 of the bytes the call must move over 3.35 TB/s, its operations over 989
@@ -259,7 +303,7 @@ def check_images(images: torch.Tensor, batch: int, length: int) -> None:
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py:71-72; bf16 ulp
 TRAIN_BATCH = 16
 TRAIN_STEPS = 10
-TIME_STEPS = 50  # steps a timed turn (phase 10)
+TIME_STEPS = 20  # steps a timed turn (phase 10; 50 until the captured step's phase 18)
 FWD_PER_STEP = BWD_PER_STEP = 7  # D B1 x3, W B1 x3, G B3 x1 ('adversarial', dead pass skipped)
 # kernel vs plain cores, step 1 (bf16 D/W trunks, where the two cores round
 # the attention output to bf16 at other places): metrics within tol x
@@ -484,22 +528,30 @@ def check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step,
         tol_grads=CPU_TOL_GRAD, g_stats_max_abs_err=stats, updated_param_mismatches=flips)
 
 
+CLI_STEPS = 6  # phase 9: two eager warm-up steps, the capture, replays
+
+
 def check_train_cli(attention, train_main, infer_main) -> None:
-    """Phase 9: 3 steps of the train CLI (recommended config, batch 16), the
-    export of G, served with noise z."""
+    """Phase 9: CLI_STEPS steps of the train CLI (recommended config, batch
+    16) on CUDA graphs, the export of G, served with noise z."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     g_path = OUT_DIR / "trained_g.npz"
     before = attention.bwd_launches
-    train_main(["--device", "cuda", "--steps", "3", "--export-g", str(g_path)])
-    if attention.bwd_launches != before + 3 * BWD_PER_STEP:
-        raise AssertionError("the train CLI did not run the backward kernel")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_main(["--device", "cuda", "--steps", str(CLI_STEPS), "--export-g", str(g_path)])
+    rate = [ln for ln in out.getvalue().splitlines() if "steps/s" in ln]
+    if attention.bwd_launches != before + CLI_STEPS * BWD_PER_STEP or len(rate) != 1:
+        raise AssertionError(f"the train CLI: {attention.bwd_launches - before} backward "
+                             f"launches for {CLI_STEPS} steps:\n{out.getvalue()[-2000:]}")
     out_path = OUT_DIR / "trained_hopper.npy"
     infer_main(["--weights", str(g_path), "--word", "Hopper", "-n", "4", "--device", "cuda",
                 "--out", str(out_path), "--config", str(ROOT / "configs" / "recommended.json")])
     served = np.load(out_path)
     if served.shape != (4, 32, 96, 1) or not np.isfinite(served).all() or np.abs(served).max() > 1:
         raise AssertionError(f"served the trained G: {served.shape}")
-    say("9 train cli", steps=3, export=str(g_path.relative_to(ROOT)),
+    say("9 train cli", card=card_line(), steps=CLI_STEPS, steps_per_s=rate[0],
+        export=str(g_path.relative_to(ROOT)),
         served=str(out_path.relative_to(ROOT)), shape=served.shape)
 
 
@@ -1063,7 +1115,8 @@ def check_data(workdir: Path) -> tuple[Path, dict]:
     return root, sorted(Path(style_dir).glob("*.png"))
 
 
-def check_trainer(attention, fused_block, workdir: Path, step_median_ms: float) -> dict:
+def check_trainer(attention, fused_block, workdir: Path, eager_median_ms: float,
+                  graph_median_ms: float) -> dict:
     """Phase 16: the train CLI's Trainer mode on the card with
     configs/recommended.json (padded, EMA 0.999, standing statistics, the
     gate at 64 samples, batch 16): 2 epochs of 20 batches, then 1 more that
@@ -1106,11 +1159,11 @@ def check_trainer(attention, fused_block, workdir: Path, step_median_ms: float) 
     finally:
         fetches.restore()
         loop.Trainer.train = train
-    for run_epochs, (fwd, bwd, fused) in zip((TRAINER_EPOCHS, 1), launches):
+    for run_epochs, trainer, (fwd, bwd, fused) in zip((TRAINER_EPOCHS, 1), trainers, launches):
         want = (run_epochs * per_epoch_fwd, run_epochs * TRAINER_BATCHES * BWD_PER_STEP, 0)
-        if (fwd, bwd, fused) != want:
+        if (fwd, bwd, fused) != want or len(trainer.chunk.graphs.captured) != 1:
             raise AssertionError(f"Trainer launches (fwd, bwd, fused) {(fwd, bwd, fused)}, "
-                                 f"derived {want}")
+                                 f"derived {want}; graphs {len(trainer.chunk.graphs.captured)}")
     resumed_at = TRAINER_EPOCHS * TRAINER_BATCHES
     if "resumed" in logs[0] or f"resumed from checkpoint at step {resumed_at}" not in logs[1]:
         raise AssertionError(f"Trainer resume:\n{logs[1][-2000:]}")
@@ -1144,11 +1197,16 @@ def check_trainer(attention, fused_block, workdir: Path, step_median_ms: float) 
         derived_fwd_per_epoch=f"{TRAINER_BATCHES} x {FWD_PER_STEP} + {standing} standing "
                               f"+ 1 grid + {gate_chunks} gate = {per_epoch_fwd}",
         fwd_per_step=FWD_PER_STEP, bwd_per_step=BWD_PER_STEP,
+        graph_warmup_steps_per_run=[t.chunk.graphs.warmup_steps for t in trainers],
+        graph_capture_s=[g.capture_s for t in trainers
+                         for g in t.chunk.graphs.captured.values()],
+        graph_pool_bytes=[g.pool_bytes for t in trainers
+                          for g in t.chunk.graphs.captured.values()],
         metrics_finite=True, epoch_secs=[t.epoch_secs for t in trainers],
         warm_epoch_steps_per_s=TRAINER_BATCHES / warm_s,
-        step_function_median_ms=step_median_ms,
+        eager_step_median_ms=eager_median_ms, graph_step_median_ms=graph_median_ms,
         loop_ms_per_step=1e3 * warm_s / TRAINER_BATCHES,
-        loop_host_cost_ms_per_step=1e3 * warm_s / TRAINER_BATCHES - step_median_ms,
+        loop_host_cost_ms_per_step=1e3 * warm_s / TRAINER_BATCHES - graph_median_ms,
         host_fetches_first_run=first_run_fetches,
         host_fetches_per_step=first_run_fetches / (TRAINER_EPOCHS * TRAINER_BATCHES),
         artifact_secs=[t.artifact_secs for t in trainers], checkpoints=ckpts,
@@ -1236,6 +1294,463 @@ def check_evaluate_and_serve(attention, fused_block, workdir: Path, style_pngs: 
             "style_fused": 1}
 
 
+# ---- phases 18-19: the captured train step, the real-data campaign config ------
+
+GRAPH_K = 4          # steps a call in the K = 4 comparison and timing
+GRAPH_TIME_CALLS = 50  # K = 1 calls timed (phase 18)
+REMAT_FWD_PER_STEP = FWD_PER_STEP + 1  # the backward recomputes G's B3 forward
+IAM_WORDS, IAM_BATCHES = 300, 8  # phase 19: raw words fabricated; batches of its one epoch
+
+
+def stacked(batches: list) -> dict:
+    return {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+
+
+def all_state(state) -> list:
+    """Every tensor the step body writes: parameters, buffers (BN, CBN and
+    spectral-norm statistics), the optimizers' counts and moments, the EMA
+    and the device step counter."""
+    out = []
+    for module in state.modules().values():
+        out += [p.data for p in module.parameters()] + list(module.buffers())
+    for s in state.opt_states.values():
+        out += [s.count, *s.nu, *(s.mu or ())]
+    return out + list(state.g_ema or ()) + [state.step_t]
+
+
+def counts_now(attention, fused_block) -> tuple:
+    return attention.launches, attention.bwd_launches, fused_block.launches
+
+
+def graph_vs_eager(cfg, trees, batches, make_train_step, make_chunked_train_step,
+                   METRIC_NAMES, attention, fused_block, per_step: tuple, ref_cfg=None) -> dict:
+    """len(batches) steps of the chunked step (CUDA graphs) against as many
+    eager steps of `ref_cfg` (default `cfg`) from the same start, under
+    cuDNN's deterministic algorithms: a call of the graph's WARMUP_STEPS
+    eager warm-up steps, then one call of the other k steps (the capture and
+    k replays). The launch counts of each call against its steps times
+    `per_step` = (core forward, core backward, fused). Returns the errors,
+    the k-step call's counts and the graphs."""
+    from scrabblegan_torch.train.graphs import WARMUP_STEPS
+
+    k = len(batches) - WARMUP_STEPS
+    eager, graph = state_of(ref_cfg or cfg, trees, "cuda"), state_of(cfg, trees, "cuda")
+    parts = (batches[:WARMUP_STEPS], batches[WARMUP_STEPS:])
+    got, counts = [], []
+    with deterministic_convs():
+        step = make_train_step(ref_cfg or cfg, eager.models)
+        want = [step(eager, b) for b in batches]
+        chunk = make_chunked_train_step(cfg, graph.models)
+        for part in parts:
+            torch.cuda.synchronize()
+            reset_counts(attention, fused_block)
+            got.append(chunk(graph, stacked(part)))
+            torch.cuda.synchronize()
+            counts.append(counts_now(attention, fused_block))
+    derived = [tuple(len(part) * n for n in per_step) for part in parts]
+    if (counts != derived or chunk.graphs.warmup_steps != WARMUP_STEPS
+            or len(chunk.graphs.captured) != 1):
+        raise AssertionError(f"graph calls: launches (fwd, bwd, fused) {counts}, derived "
+                             f"{derived} for {WARMUP_STEPS} warm-up steps, then a capture "
+                             f"and {k} replays; {len(chunk.graphs.captured)} graphs")
+    counts, derived = counts[1], derived[1]
+    got = torch.cat(got, dim=1).cpu().numpy()
+    want = np.array([[float(m[n]) for n in METRIC_NAMES] for m in want]).T
+    errs = np.abs(got - want)
+    bad = [(METRIC_NAMES[j], i) for j, i in zip(*np.nonzero(
+        errs > STEP_TOL_METRICS * (1 + np.abs(want))))]
+    grads, flips = gradient_check(graph, eager, STEP_TOL_GRAD, cfg.optimizer.beta_2)
+    if (not np.isfinite(got).all() or bad or any(grads[n] > STEP_TOL_GRAD[n] for n in grads)
+            or (k == 1 and any(flips.values()))):
+        raise AssertionError(f"graph vs eager, {len(batches)} steps: metrics {bad}, "
+                             f"grads {grads}, "
+                             f"updated parameters {flips}")
+    bitwise = bool(np.array_equal(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(all_state(graph), all_state(eager)))
+    return {"state": graph, "chunk": chunk, "counts": counts, "derived": derived,
+            "max_metric_err": float(errs.max()), "grad_norm_err": grads,
+            "updated_param_mismatches": flips, "bitwise": bitwise}
+
+
+def time_graph_steps(state, chunk, batches) -> dict:
+    """CUDA events around each call: GRAPH_TIME_CALLS calls of one step, then
+    calls of GRAPH_K steps (ms a step: the call's time over K)."""
+    one = [stacked([batches[i % len(batches)]]) for i in range(GRAPH_TIME_CALLS)]
+    many = [stacked(batches[:GRAPH_K])] * 12
+    out = {}
+    for name, calls, k in (("k1", one, 1), (f"k{GRAPH_K}", many, GRAPH_K)):
+        chunk(state, calls[0])
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(calls) + 1)]
+        torch.cuda.synchronize()
+        for i, call in enumerate(calls):
+            events[i].record()
+            chunk(state, call)
+        events[-1].record()
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) / k for a, b in zip(events, events[1:])]
+        p10, p50, p90 = np.percentile(ms, [10, 50, 90]).tolist()
+        out[name] = {"median_ms_per_step": p50, "p10_p90_ms_per_step": [p10, p90],
+                     "mean_ms_per_step": float(np.mean(ms)), "calls": len(calls)}
+    return out
+
+
+GRAPH_KERNEL_NODES = (  # (a COUNTERS entry of train/graphs.py, the trace's kernel of one launch)
+    (0, "attention_fwd_"), (1, "attention_bwd_reduce_kernel"), (3, "fused_block_fwd_"))
+
+
+def profile_graph_steps(state, chunk, batch: dict, steps: int = 5) -> dict:
+    """torch.profiler over `steps` replays: device busy share and kernel
+    nodes a step, or 'not measured' if the trace holds no kernel of a graph.
+    The attention kernels' nodes a replay, counted in the trace (a backward
+    call ends in one reduce kernel), must equal the launches the capture
+    counted, which the counters add on every replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            chunk(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    try:
+        kernels, busy, span, by_name = device_activity(prof)
+    except AssertionError:
+        return {"device_busy_share": "not measured (no kernel in the trace)",
+                "wall_ms_per_step": 1e3 * wall / steps}
+    (captured,) = chunk.graphs.captured.values()
+    traced = {}
+    for index, name in GRAPH_KERNEL_NODES:
+        nodes = sum(c for k, (_, c) in by_name.items() if name in k)
+        traced[name] = nodes / steps
+        if nodes != steps * captured.counts[index]:
+            raise AssertionError(f"{steps} replays: {nodes} '{name}' kernel nodes in the trace, "
+                                 f"the capture counted {captured.counts[index]} a replay")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms_per_step": 1e3 * wall / steps, "device_busy_share": busy / span,
+            "traced_attention_nodes_per_replay": traced,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "kernel_nodes_per_step": len(kernels) / steps,
+            "top_kernels_ms_per_step": [(k[:80], t / steps / 1e3, c / steps)
+                                        for k, (t, c) in top]}
+
+
+def time_ctc_graph(frames: int, max_len: int, gen) -> dict:
+    """One CTC call and its gradient (the step makes two: on fake and on real
+    words) at the step's shapes, batch 16, as a CUDA graph: device ms and
+    kernel nodes a call. First, 10 eager calls must give the same gradient
+    bitwise: the padding positions all hold the blank's id, so a gradient
+    added with atomics would differ from run to run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from scrabblegan_torch.ops.ctc import ctc_loss
+
+    logits = torch.randn(TRAIN_BATCH, frames, 53, generator=gen, device="cuda",
+                         requires_grad=True)
+    lengths = torch.randint(1, max_len + 1, (TRAIN_BATCH,), generator=gen, device="cuda")
+    labels = torch.randint(0, 52, (TRAIN_BATCH, max_len), generator=gen, device="cuda")
+    labels = torch.where(torch.arange(max_len, device="cuda")[None] >= lengths[:, None], 52,
+                         labels)
+
+    def call():
+        return torch.autograd.grad(ctc_loss(logits, labels, 4 * lengths - 1, lengths).sum(),
+                                   logits)[0]
+    first = call()
+    if not all(torch.equal(first, call()) for _ in range(10)):
+        raise AssertionError("the CTC's gradient differs between two calls")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    ms = cuda_ms(graph.replay, 50)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    nodes = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return {"frames": frames, "ms_per_call": ms, "kernel_nodes_per_call": nodes or "not measured",
+            "eager_grads_bitwise_over_11_calls": True}
+
+
+def peak_step_memory(cfg, trees, batch, make_train_step) -> int:
+    """Peak device bytes allocated over one eager step, beyond the state."""
+    state = state_of(cfg, trees, "cuda")
+    step = make_train_step(cfg, state.models)
+    step(state, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del state, step
+    torch.cuda.empty_cache()
+    return peak
+
+
+def check_captured_step(attention, fused_block, load_config, synthetic_batch, make_train_step,
+                        make_chunked_train_step, METRIC_NAMES, step_medians: dict,
+                        gen) -> dict:
+    """Phase 18; returns the launches of the K = 4 replay runs (the main
+    path, counts reset just before and read just after) and of the 'fused'
+    replay, and {config: the median ms of a K = 1 call}."""
+    from scrabblegan_torch.train.graphs import WARMUP_STEPS
+
+    card = card_line()
+    rng = np.random.default_rng(18)
+    main = {"fwd": 0, "bwd": 0, "fused": 0}
+    medians = {}
+    for name, cfg in train_configs(load_config).items():
+        kcfg = with_core(cfg, True)
+        trees = fake_trees(kcfg)
+        length = cfg.io.seq_len or 5
+        batches = [synthetic_batch(cfg, TRAIN_BATCH, length, rng)
+                   for _ in range(WARMUP_STEPS + GRAPH_K)]
+        per_step = (FWD_PER_STEP, BWD_PER_STEP, 0)
+        one = graph_vs_eager(kcfg, trees, batches[:WARMUP_STEPS + 1], make_train_step,
+                             make_chunked_train_step, METRIC_NAMES, attention, fused_block,
+                             per_step)
+        del one["state"], one["chunk"]
+        run = graph_vs_eager(kcfg, trees, batches, make_train_step, make_chunked_train_step,
+                             METRIC_NAMES, attention, fused_block, per_step)
+        state, chunk = run.pop("state"), run.pop("chunk")
+        (captured,) = chunk.graphs.captured.values()
+        # the main path: K = 4 replays, no capture; the counts exact under replay
+        torch.cuda.synchronize()
+        reset_counts(attention, fused_block)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        metrics = chunk(state, stacked(batches[WARMUP_STEPS:]))
+        torch.cuda.synchronize()
+        replay_peak = torch.cuda.max_memory_allocated() - base
+        counts = counts_now(attention, fused_block)
+        if counts != tuple(GRAPH_K * n for n in per_step) or captured.counts[:2] != per_step[:2]:
+            raise AssertionError(f"{name}: {GRAPH_K} replays launched {counts}; a captured "
+                                 f"step counts {captured.counts}")
+        if not torch.isfinite(metrics).all():
+            raise AssertionError(f"{name}: non-finite metrics under replay")
+        main["fwd"] += counts[0]
+        main["bwd"] += counts[1]
+        times = time_graph_steps(state, chunk, batches[WARMUP_STEPS:])
+        medians[name] = times["k1"]["median_ms_per_step"]
+        prof = profile_graph_steps(state, chunk, stacked(batches[:1]))
+        frames = 4 * (cfg.io.bucket_size if cfg.parallel.shape_mode == "padded" else length) - 1
+        ctc = time_ctc_graph(frames, frames // 4 + 1, gen)
+        eager_peak = peak_step_memory(kcfg, trees, batches[0], make_train_step)
+        say("18 captured step", card=card, config=name, batch=TRAIN_BATCH, dataflow="nhwc1",
+            k1_vs_eager={k: one[k] for k in ("max_metric_err", "grad_norm_err",
+                                             "updated_param_mismatches", "bitwise")},
+            k4_vs_eager={k: run[k] for k in ("max_metric_err", "grad_norm_err",
+                                             "updated_param_mismatches", "bitwise")},
+            tol_metrics=STEP_TOL_METRICS, tol_grads=STEP_TOL_GRAD,
+            capture_call_launches_fwd_bwd_fused=run["counts"],
+            warmup_steps=chunk.graphs.warmup_steps,
+            replay_launches_per_step=dict(zip(("fwd", "bwd", "fused"),
+                                              [c / GRAPH_K for c in counts])),
+            graphs=len(chunk.graphs.captured), capture_s=captured.capture_s, pool_bytes=captured.pool_bytes,
+            replay_peak_bytes_beyond_state=replay_peak,
+            eager_step_peak_bytes_beyond_state=eager_peak,
+            times=times, eager_median_ms_per_step_phase10=step_medians[name],
+            profile=prof, ctc_graph=ctc,
+            ctc_share_of_step=2 * ctc["ms_per_call"] / times["k1"]["median_ms_per_step"])
+        del state, chunk, captured, run
+        torch.cuda.empty_cache()
+
+    check_shared_pool(load_config, synthetic_batch, make_train_step, make_chunked_train_step,
+                      METRIC_NAMES, rng, card)
+
+    # 'fused' and remat, on the bench config, K = 1
+    cfg = train_configs(load_config)["bench bucketed len 5"]
+    kcfg = with_core(cfg, True)
+    trees = fake_trees(kcfg)
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, 5, rng) for _ in range(WARMUP_STEPS + 1)]
+    with dataflow("fused"):
+        fused = graph_vs_eager(kcfg, trees, batches, make_train_step, make_chunked_train_step,
+                               METRIC_NAMES, attention, fused_block,
+                               (FWD_PER_STEP, BWD_PER_STEP, FWD_PER_STEP))
+        state, chunk = fused.pop("state"), fused.pop("chunk")
+        reset_counts(attention, fused_block)
+        chunk(state, stacked(batches[-1:]))
+        torch.cuda.synchronize()
+        fused_replay = counts_now(attention, fused_block)
+        if fused_replay != (FWD_PER_STEP, BWD_PER_STEP, FWD_PER_STEP):
+            raise AssertionError(f"'fused' replay launched {fused_replay}")
+        main["fused"] = fused_replay[2]
+        (captured,) = chunk.graphs.captured.values()
+        say("18 captured step fused", card=card, config="bench bucketed len 5",
+            vs_eager_fused={k: fused[k] for k in ("max_metric_err", "grad_norm_err",
+                                                  "updated_param_mismatches", "bitwise")},
+            replay_launches_fwd_bwd_fused=fused_replay, capture_s=captured.capture_s,
+            pool_bytes=captured.pool_bytes)
+        del state, chunk, captured
+    rcfg = dataclasses.replace(kcfg, shared=dataclasses.replace(kcfg.shared, remat=True))
+    remat = graph_vs_eager(rcfg, trees, batches, make_train_step, make_chunked_train_step,
+                           METRIC_NAMES, attention, fused_block,
+                           (REMAT_FWD_PER_STEP, BWD_PER_STEP, 0), ref_cfg=kcfg)
+    (captured,) = remat["chunk"].graphs.captured.values()
+    pool = captured.pool_bytes
+    del remat["state"], remat["chunk"], captured
+    torch.cuda.empty_cache()
+    say("18 captured step remat", card=card, config="bench bucketed len 5",
+        vs_eager_plain={k: remat[k] for k in ("max_metric_err", "grad_norm_err",
+                                              "updated_param_mismatches", "bitwise")},
+        launches_fwd_bwd_fused=remat["counts"], fwd_per_step=REMAT_FWD_PER_STEP,
+        pool_bytes=pool,
+        eager_step_peak_bytes_beyond_state={
+            "plain": peak_step_memory(kcfg, trees, batches[0], make_train_step),
+            "remat": peak_step_memory(rcfg, trees, batches[0], make_train_step)})
+    return main, medians
+
+
+def check_shared_pool(load_config, synthetic_batch, make_train_step, make_chunked_train_step,
+                      METRIC_NAMES, rng, card: str) -> None:
+    """Phase 18: bucketed mode with 'independent' pairing captures a graph a
+    (real, fake) length pair, all in one pool. Three pairs A, B, C in turn,
+    two eager warm-up steps each (A, B, C, A, B, C), then captured in turn
+    (A, B, C) and replayed out of their capture order (B, A), against the
+    same eleven eager steps, under cuDNN's deterministic algorithms; the
+    pool bytes each capture added."""
+    cfg = with_core(load_config(None, {"shared.batch_size": TRAIN_BATCH,
+                                       "shared.trunk_dtype": "bfloat16",
+                                       "parallel.bucket_pairing": "independent"}), True)
+    # each pair's two eager warm-up steps, its capture, then replays out of order
+    pairs = [(5, 5), (10, 3), (2, 8)] * 3 + [(10, 3), (5, 5)]
+    batches = []
+    for real, fake in pairs:
+        batch = synthetic_batch(cfg, TRAIN_BATCH, real, rng)
+        batch["fake_labels"] = synthetic_batch(cfg, TRAIN_BATCH, fake, rng)["fake_labels"]
+        batches.append(batch)
+    trees = fake_trees(cfg)
+    eager, graph = state_of(cfg, trees, "cuda"), state_of(cfg, trees, "cuda")
+    with deterministic_convs():
+        step = make_train_step(cfg, eager.models)
+        want = np.array([[float(m[n]) for n in METRIC_NAMES]
+                         for m in (step(eager, b) for b in batches)])
+        chunk = make_chunked_train_step(cfg, graph.models)
+        reserved = [torch.cuda.memory_reserved()]
+        got = []
+        for b in batches:
+            got.append(chunk(graph, stacked([b]))[:, 0].cpu().numpy())
+            reserved.append(torch.cuda.memory_reserved())
+    got = np.array(got)
+    errs = np.abs(got - want)
+    if (len(chunk.graphs.captured) != 3 or not np.isfinite(got).all()
+            or (errs > STEP_TOL_METRICS * (1 + np.abs(want))).any()):
+        raise AssertionError(f"shared pool: {len(chunk.graphs.captured)} graphs, metric "
+                             f"errors {errs.max()}")
+    bitwise = bool(np.array_equal(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(all_state(graph), all_state(eager)))
+    say("18 captured step shared pool", card=card, config="bucketed, 'independent' pairing",
+        batch=TRAIN_BATCH, real_fake_lengths=pairs, graphs=len(chunk.graphs.captured),
+        pool_bytes_per_capture=[g.pool_bytes for g in chunk.graphs.captured.values()],
+        capture_s=[g.capture_s for g in chunk.graphs.captured.values()],
+        reserved_bytes_after_each_call=reserved[1:], max_metric_err=float(errs.max()),
+        tol_metrics=STEP_TOL_METRICS, bitwise=bitwise)
+    del eager, graph, chunk
+    torch.cuda.empty_cache()
+
+
+def fabricate_iam(root: Path, words: int, seed: int) -> Path:
+    """A raw IAM tree: <root>/words/<form>/<line>/<id>.png, grey word images
+    of random sizes, and <root>/gt/words.txt with a comment, 'err' lines and
+    non-alphabetic words among alphabetic ones of 1-10 letters."""
+    from scrabblegan_torch.data.images import write_grayscale
+
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    lines = ["# id result graylevel components x y w h tag transcription"]
+    for i in range(words):
+        form = f"a{i // 100:02d}"
+        line_dir = root / "words" / form / f"{form}-{i // 10 % 10:03d}"
+        line_dir.mkdir(parents=True, exist_ok=True)
+        wid = f"{form}-{i // 10 % 10:03d}-{i % 10:02d}"
+        word = "".join(rng.choice(letters, int(rng.integers(1, 11))))
+        if i % 25 == 7:
+            word += "."
+        h, w = int(rng.integers(24, 100)), int(rng.integers(16, 420))
+        write_grayscale(str(line_dir / f"{wid}.png"),
+                        rng.integers(0, 256, (h, w)).astype(np.uint8))
+        lines.append(f"{wid} {'err' if i % 25 == 11 else 'ok'} 154 1 0 0 {w} {h} NN {word}")
+    (root / "gt").mkdir(parents=True, exist_ok=True)
+    (root / "gt" / "words.txt").write_text("\n".join(lines) + "\n")
+    return root / "words"
+
+
+def check_iam_campaign(attention, fused_block, data_root: Path) -> dict:
+    """Phase 19: configs/iam_campaign.json (padded, EMA 0.999, 'independent'
+    pairing, io.stall_timeout_s 900) through the train CLI on a raw IAM tree
+    that the first run converts; style images and lexicon from phase 15.
+    Cut in depth only: 1 epoch of IAM_BATCHES batches."""
+    from scrabblegan_torch.config import load_config
+    from scrabblegan_torch.train import loop
+    from scrabblegan_torch.train import main as train_main
+
+    config = ROOT / "configs" / "iam_campaign.json"
+    cfg = load_config(str(config))
+    root = OUT_DIR / "iam"
+    shutil.rmtree(root, ignore_errors=True)
+    raw = fabricate_iam(root / "IAM", IAM_WORDS, seed=19)
+    read_dir = root / "IAM" / "words-Reading"
+    workdir = root / "run"
+    trainers = []
+    train = loop.Trainer.train
+
+    def recorded(trainer, *a, **k):
+        trainers.append(trainer)
+        return train(trainer, *a, **k)
+    loop.Trainer.train = recorded
+    try:
+        torch.cuda.synchronize()
+        reset_counts(attention, fused_block)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_main(["--device", "cuda", "--config", str(config),
+                             "--workdir", str(workdir), "--epochs", "1",
+                             "--batches-per-epoch", str(IAM_BATCHES),
+                             "--style-dir", str(data_root / "style_imgs"),
+                             "--words-file", str(data_root / "random_words.txt"),
+                             "--set", f"io.raw_dir={raw}/", "--set", f"io.read_dir={read_dir}/"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_now(attention, fused_block)
+    finally:
+        loop.Trainer.train = train
+    log = out.getvalue()
+    if rc != 0 or "converting dataset to GAN-Reading format" not in log:
+        raise AssertionError(f"iam campaign exited {rc}:\n{log[-2000:]}")
+    (trainer,) = trainers
+    wd, graphs = trainer.watchdog, trainer.chunk.graphs
+    converted = sum(1 for _ in read_dir.rglob("*.png"))
+    heartbeat = workdir / ".heartbeat"
+    gate_chunks = -(-cfg.io.export_quality_samples // cfg.shared.num_gen)
+    steps = IAM_BATCHES
+    derived = (steps * FWD_PER_STEP + cfg.optimizer.ema_standing_stat_batches + 1 + gate_chunks,
+               steps * BWD_PER_STEP, 0)
+    # one grace at the start, one a captured shape, one before the first artifacts
+    if (wd is None or wd.graces != 2 + len(graphs.captured) or wd.beats < 3
+            or not heartbeat.exists() or counts != derived or converted == 0):
+        raise AssertionError(f"iam campaign: watchdog {wd and (wd.graces, wd.beats)}, "
+                             f"graphs {len(graphs.captured)}, launches {counts} (derived "
+                             f"{derived}), converted {converted}")
+    rows = (workdir / "output" / "batch_summary.txt").read_text().splitlines()[1:]
+    values = np.array([[float(v) for v in r.split(";")] for r in rows])
+    if values.shape != (IAM_BATCHES, 16) or not np.isfinite(values).all():
+        raise AssertionError(f"iam campaign summaries {values.shape}")
+    say("19 iam campaign", card=card_line(), config="configs/iam_campaign.json",
+        raw_words=IAM_WORDS, converted_words=converted, batches=IAM_BATCHES,
+        batch=cfg.shared.batch_size, stall_timeout_s=cfg.io.stall_timeout_s,
+        watchdog_beats=wd.beats, watchdog_graces=wd.graces, graphs=len(graphs.captured),
+        heartbeat_age_s=time.time() - heartbeat.stat().st_mtime,
+        launches_fwd_bwd_fused=counts, derived=derived, wall_s=wall,
+        epoch_s=trainer.epoch_secs, artifact_secs=trainer.artifact_secs)
+    return {"fwd": counts[0], "bwd": counts[1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1252,7 +1767,8 @@ def main() -> int:
     from scrabblegan_torch.models.build import load_config, noise_config
     from scrabblegan_torch.train import main as train_main
     from scrabblegan_torch.data.synthetic import synthetic_batch
-    from scrabblegan_torch.train.step import METRIC_NAMES, make_train_step
+    from scrabblegan_torch.train.step import (METRIC_NAMES, make_chunked_train_step,
+                                              make_train_step)
 
     # 1. device
     card = card_line()
@@ -1429,18 +1945,29 @@ def main() -> int:
     bwd_rows = time_backward(attention, lib, gen, card)
     step_medians = time_train_steps(runs, make_train_step, card)
     profile_train_steps(runs, make_train_step, card)
+    del runs
+    torch.cuda.empty_cache()
+
+    # 18. the captured train step: graphs against the eager step, counts, times
+    graph_launches, graph_medians = check_captured_step(attention, fused_block, load_config, synthetic_batch,
+                                         make_train_step, make_chunked_train_step,
+                                         METRIC_NAMES, step_medians, gen)
 
     # 15. the data path: the synthetic data set written, read and loaded
-    _, style_pngs = check_data(OUT_DIR)
+    data_root, style_pngs = check_data(OUT_DIR)
 
     # 16. the epoch Trainer through the train CLI, then resumed
     trainer_dir = OUT_DIR / "trainer"
     trainer_launches = check_trainer(attention, fused_block, trainer_dir,
-                                     step_medians["recommended (padded)"])
+                                     step_medians["recommended (padded)"],
+                                     graph_medians["recommended (padded)"])
 
     # 17. evaluate, the style-source infer, style-z G under both dataflows
     serve_launches = check_evaluate_and_serve(attention, fused_block, trainer_dir, style_pngs,
                                               gen)
+
+    # 19. the real-data campaign config: raw IAM converted, trained with the watchdog
+    iam_launches = check_iam_campaign(attention, fused_block, data_root)
 
     kernel_ms, plain_ms = core_ms[5]  # the same shape: batch 1024
     bwd_row = bwd_rows[("G B3 len 5", torch.float32, TRAIN_BATCH)]
@@ -1450,7 +1977,8 @@ def main() -> int:
         {"name": "attention_fwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/attention_fwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:111",
-         "launches": train_launches["fwd"], "serving_launches": main_path_launches,
+         "launches": graph_launches["fwd"], "eager_step_launches": train_launches["fwd"],
+         "serving_launches": main_path_launches, "iam_campaign_launches": iam_launches["fwd"],
          "trainer_launches": trainer_launches["fwd"],
          "evaluate_launches": serve_launches["evaluate"],
          "infer_style_launches": serve_launches["infer"],
@@ -1463,7 +1991,9 @@ def main() -> int:
         {"name": "attention_bwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/attention_bwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:195",
-         "launches": train_launches["bwd"], "trainer_launches": trainer_launches["bwd"],
+         "launches": graph_launches["bwd"], "eager_step_launches": train_launches["bwd"],
+         "trainer_launches": trainer_launches["bwd"],
+         "iam_campaign_launches": iam_launches["bwd"],
          "max_abs_err": bwd_err,
          "shape": "G B3 len 5, batch 16, f32", "ms": bwd_row["kernel_ms"],
          **{key: bwd_row[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1474,7 +2004,8 @@ def main() -> int:
         {"name": "fused_block_fwd", "route": "cuda",
          "source": "scrabblegan_torch/csrc/fused_block_fwd.cu",
          "replaces": "scrabblegan_tpu/kernels/attention.py:333",
-         "launches": fused_train, "serving_launches": fused_serving,
+         "launches": graph_launches["fused"], "eager_step_launches": fused_train,
+         "serving_launches": fused_serving,
          "cli_launches": fused_cli, "style_serving_launches": serve_launches["style_fused"],
          "max_abs_err": max(fused_err.values()),
          "max_abs_err_by_dtype": fused_err, "ms": fused_kernel_ms, "plain_ms": fused_plain_ms,

@@ -20,6 +20,13 @@ autograd differentiates; a CUDA tensor goes through `AttentionCore`, whose
 forward and backward launch the kernels or raise. `launches` and
 `bwd_launches` count kernel launches. The whole-block kernel of the 'fused'
 dataflow is in `kernels/fused_block.py`.
+
+The launch paths are capture-safe: they read nothing from the device
+(`backward_plan` works from the shapes and the SM count), launch on the
+current stream and take their output and scratch from `torch.empty`, so a
+CUDA graph (train/graphs.py) captures them; the library is built and loaded
+at the first eager call, before any capture. A capture counts its launches
+once; `train/graphs.py` adds them again on every replay.
 """
 
 from __future__ import annotations

@@ -22,7 +22,8 @@ w_theta is (C, Ca) and w_out (Cg, C), JAX's (in, out) matrices; phiT
 Dispatch has no fallback: a CPU tensor takes the plain composition; a CUDA
 tensor launches the kernel through `FusedBlock` (fuse=True, JAX's 'fused')
 or runs the composition on the attention core's kernels (fuse=False, JAX's
-'packed'), or raises. `launches` counts kernel launches.
+'packed'), or raises. `launches` counts kernel launches; under CUDA graph
+replay `train/graphs.py` keeps it exact, as for `kernels/attention.py`.
 """
 
 from __future__ import annotations

@@ -2,9 +2,8 @@
 assembles from them, in numpy.
 
 Port of the batch half of scrabblegan_tpu/train/loop.py (`Trainer.load_data`,
-`_assemble`, `_assemble_mixed`, `_pad_batch`; JAX's `next_batch` for
-`parallel.steps_per_call` 1 is `assemble`, the chunked step not being
-ported). Every draw is JAX's, in JAX's order: the data set's own generator
+`_assemble`, `_assemble_mixed`, `_pad_batch`, `next_batch`). Every draw
+is JAX's, in JAX's order: the data set's own generator
 (seeded with `cfg.seed`) picks buckets and rows, and one
 `np.random.default_rng(cfg.seed)` (`np_rng`) draws the fixed visualisation
 seed at load time, then each batch's fake labels, fake bucket
@@ -104,6 +103,26 @@ class Batches:
         if cfg.parallel.shape_mode == "padded":
             batch = self.pad_batch(batch, bucket, fake_bucket)
         return batch
+
+    def next_chunk(self, k: int) -> dict:
+        """JAX's `next_batch`: k batches, every leaf stacked with a leading k.
+        For k > 1 the chunk shares one bucket: drawn once ('matched'), or a
+        bucket and an independent fake bucket ('independent'), or
+        `io.seq_len`; batch_mix='sample' batches share the padded shape and
+        need no pinning."""
+        cfg = self.cfg
+        if k == 1 or self.mixed:
+            batches = [self.assemble() for _ in range(k)]
+        else:
+            if cfg.io.seq_len:
+                bucket = fake_bucket = int(cfg.io.seq_len)
+            else:
+                bucket = self.dataset.sample_bucket()
+                fake_bucket = (bucket if cfg.parallel.bucket_pairing == "matched"
+                               else int(self.np_rng.integers(1, cfg.io.bucket_size + 1)))
+            batches = [self.assemble(bucket=bucket, fake_bucket=fake_bucket)
+                       for _ in range(k)]
+        return {key: np.stack([b[key] for b in batches]) for key in batches[0]}
 
     def _assemble_mixed(self) -> dict:
         """batch_mix='sample': each sample's real length drawn by population

@@ -4,7 +4,8 @@ Port of scrabblegan_tpu/train/checkpoint.py. Orbax is not on the card's
 machine, so the format is the port's own:
 - a checkpoint is <ckpt_dir>/<step>/state.pt, a `torch.save` of plain
   tensors, ints and lists: the four networks' parameters and statistics
-  (their state_dicts), the four optimizer states, the step and G's EMA. It is
+  (their state_dicts), the four optimizer states (their counts as 0-d
+  tensors), the step and G's EMA. It is
   written into a temporary directory, flushed to disk and moved into place
   with `os.replace`, so a reader sees a whole checkpoint or none; the newest
   MAX_TO_KEEP are kept, as Orbax's `max_to_keep=3`;
@@ -25,7 +26,6 @@ import torch
 
 from scrabblegan_torch.config import Config, save_config
 from scrabblegan_torch.convert import load_flax_npz, save_flax_npz
-from scrabblegan_torch.train.optim import OptState
 from scrabblegan_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -77,24 +77,29 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def _restore_list(saved: list[torch.Tensor] | None, into: list[torch.Tensor] | None,
-                  what: str) -> list[torch.Tensor] | None:
+                  what: str) -> None:
+    """Copy a saved list of tensors into the state's, in place."""
     if (saved is None) != (into is None) or (saved is not None and len(saved) != len(into)):
         raise ValueError(f"checkpoint {what} does not match the state's (was it written "
                          "with another config?)")
     if saved is None:
-        return None
+        return
     for s, t in zip(saved, into):
         if s.shape != t.shape or s.dtype != t.dtype:
             raise ValueError(f"checkpoint {what}: {tuple(s.shape)} {s.dtype} where the "
                              f"state holds {tuple(t.shape)} {t.dtype}")
-    return [s.to(t.device) for s, t in zip(saved, into)]
+    with torch.no_grad():
+        for s, t in zip(saved, into):
+            t.copy_(s)
 
 
 def restore_state(ckpt_dir: str, template: TrainState) -> tuple[TrainState | None, int]:
-    """Load the newest checkpoint into `template` (its networks' tensors are
-    written in place); returns (template, step), or (None, 0) when there is
-    no checkpoint. Raises when the checkpoint's layout differs from the
-    template's, as a restore into another config's state would."""
+    """Load the newest checkpoint into `template`; returns (template, step),
+    or (None, 0) when there is no checkpoint. Every tensor of the state,
+    the optimizers' counts included, is written in place, so that CUDA
+    graphs captured on the template stay valid. Raises when the
+    checkpoint's layout differs from the template's, as a restore into
+    another config's state would."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None, 0
@@ -104,15 +109,12 @@ def restore_state(ckpt_dir: str, template: TrainState) -> tuple[TrainState | Non
         module.load_state_dict(payload["models"][net], strict=True)
     for net, tmpl in template.opt_states.items():
         saved = payload["opt_states"][net]
-        template.opt_states[net] = OptState(
-            saved["count"], _restore_list(saved["nu"], tmpl.nu, f"{net} second moment"),
-            _restore_list(saved["mu"], tmpl.mu, f"{net} first moment"))
-    ema = _restore_list(payload["g_ema"], template.g_ema, "G EMA")
-    if ema is not None:
-        with torch.no_grad():
-            for t, s in zip(template.g_ema, ema):
-                t.copy_(s)
+        _restore_list(saved["nu"], tmpl.nu, f"{net} second moment")
+        _restore_list(saved["mu"], tmpl.mu, f"{net} first moment")
+        tmpl.count.copy_(torch.as_tensor(saved["count"]))  # an int before the counts moved
+    _restore_list(payload["g_ema"], template.g_ema, "G EMA")
     template.step = int(payload["step"])
+    template.step_t.fill_(template.step)
     return template, step
 
 

@@ -10,8 +10,10 @@ Trainer mode (the root train.py's flags):
 runs `train.loop.Trainer` on a data set: `--synthetic` first writes
 `data.synthetic.make_synthetic_dataset` under <workdir>/synthetic_data, as
 train.py does; otherwise the paths (default: the config's io.read_dir,
-io.style_dir, io.words_file) must hold a data set in the GAN-Reading
-layout (the raw-IAM converter, data/iam.py, is not ported). It writes the
+io.style_dir, io.words_file) hold a data set in the GAN-Reading layout.
+When io.read_dir does not exist and `io.dataset` has a converter
+(`data/iam.DATASET_HANDLERS`: 'iam', 'rimes'), the raw data under
+`io.raw_dir` is converted into it first, as train.py does. It writes the
 JAX Trainer's artifacts under the workdir: output/ (batch_summary.txt and
 .csv, epoch_summary.txt, image_at_epoch_NNNN.png with its labels in a
 .txt, biggan.gif), checkpoints/<step>/, model/{generator,recognizer}/<epoch>/
@@ -26,10 +28,12 @@ Steps mode (no data set, no counterpart in the JAX package):
         [--export-g g.npz]
 
 builds the train state with flax's initialisers (or loads it from a
-flax-layout .npz, `--init`), takes N steps of `make_train_step` on seeded
-uint8 random-pixel batches in the layout of the JAX bench (bench.py) and
-prints the 16 metrics of every step (fetched from the device in one copy a
-step) and, at the end, steps/s. In 'padded' shape mode the words are padded
+flax-layout .npz, `--init`), takes N steps of `make_chunked_train_step`,
+K = `parallel.steps_per_call` a call (CUDA graphs on the card, as the
+Trainer runs them), on seeded uint8 random-pixel batches in the layout of
+the JAX bench (bench.py) and prints the 16 metrics of every step (fetched
+from the device in one copy a call) and, at the end, steps/s over the calls
+after the last capture. In 'padded' shape mode the words are padded
 to `io.bucket_size` characters with true lengths drawn from
 1..bucket_size; in 'bucketed' mode every word has `--length` characters.
 Step s draws its batch and z from a generator seeded with (seed, s), so a
@@ -63,7 +67,7 @@ from scrabblegan_torch.data.synthetic import synthetic_batch, synthetic_feed, sy
 from scrabblegan_torch.train import checkpoint
 from scrabblegan_torch.train.standing import export_models
 from scrabblegan_torch.train.state import create_train_state
-from scrabblegan_torch.train.step import METRIC_NAMES, make_train_step
+from scrabblegan_torch.train.step import METRIC_NAMES, make_chunked_train_step
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "recommended.json"
 
@@ -130,14 +134,25 @@ def train_epochs(args, cfg, device) -> int:
         read_dir = args.read_dir or cfg.io.read_dir
         style_dir, words_file = args.style_dir, args.words_file
         if not os.path.exists(read_dir):
-            print(f"no data set at {read_dir}: the raw-IAM converter (data/iam.py) is not "
-                  "ported; convert with the JAX package's train.py, or pass --synthetic",
-                  file=sys.stderr)
-            return 2
+            from scrabblegan_torch.data.iam import DATASET_HANDLERS
+
+            if cfg.io.dataset not in DATASET_HANDLERS:
+                print(f"no data set at {read_dir} and no converter for io.dataset "
+                      f"{cfg.io.dataset!r}; pass --synthetic", file=sys.stderr)
+                return 2
+            print("converting dataset to GAN-Reading format...", flush=True)
+            DATASET_HANDLERS[cfg.io.dataset](cfg.io.raw_dir, read_dir, cfg.io.input_dim,
+                                             cfg.io.bucket_size)
     trainer.load_data(read_dir=read_dir, style_dir=style_dir, words_file=words_file)
     trainer.train(epochs=args.epochs, batches_per_epoch=args.batches_per_epoch,
                   resume=not args.no_resume, profile_steps=args.profile)
     return 0
+
+
+def graph_marks(chunk):
+    """What a call changes while the chunked step warms up on the card: its
+    eager warm-up steps and its captures (None on the CPU)."""
+    return chunk.graphs and (chunk.graphs.warmup_steps, len(chunk.graphs.captured))
 
 
 def main(argv=None) -> int:
@@ -162,27 +177,37 @@ def main(argv=None) -> int:
             save_config(cfg, os.path.join(d, "config.json"))
         if not args.no_resume and checkpoint.restore_state(ckpt_dir, state)[0] is not None:
             print(f"resumed from checkpoint at step {state.step}", flush=True)
-    step = make_train_step(cfg, state.models)
+    chunk = make_chunked_train_step(cfg, state.models)
+    k = max(1, int(cfg.parallel.steps_per_call))
     batch_size = args.batch_size or cfg.shared.batch_size
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"{args.steps} steps on {device} ({where}), batch {batch_size}, "
-          f"{cfg.parallel.shape_mode}", flush=True)
-    t0 = time.perf_counter()
-    for i in range(args.steps):
-        rng = np.random.default_rng([args.seed, state.step])
-        batch = synthetic_batch(cfg, batch_size, length, rng)
-        metrics = step(state, batch, synthetic_noise(cfg, batch_size, rng))
-        values = torch.stack([metrics[k] for k in METRIC_NAMES]).tolist()  # one fetch
-        print(f"step {state.step}: " + " ".join(f"{k}={v:.4f}"
-                                                for k, v in zip(METRIC_NAMES, values)),
-              flush=True)
-        if i == 0:
-            t0 = time.perf_counter()  # the first step pays the kernels' build
+          f"{cfg.parallel.shape_mode}, {k} a call", flush=True)
+    t0, timed, done = time.perf_counter(), 0, 0
+    while done < args.steps:
+        n = min(k, args.steps - done)
+        drawn = []
+        for i in range(n):
+            rng = np.random.default_rng([args.seed, state.step + i])
+            drawn.append((synthetic_batch(cfg, batch_size, length, rng),
+                          synthetic_noise(cfg, batch_size, rng)))
+        batches = {key: np.stack([b[key] for b, _ in drawn]) for key in drawn[0][0]}
+        z = None if drawn[0][1] is None else torch.stack([z for _, z in drawn])
+        marks = graph_marks(chunk)
+        rows = chunk(state, batches, z).T.tolist()  # one fetch a call
+        for i, values in enumerate(rows):
+            print(f"step {state.step - n + i + 1}: " + " ".join(
+                f"{name}={v:.4f}" for name, v in zip(METRIC_NAMES, values)), flush=True)
+        done += n
+        if done == n or graph_marks(chunk) != marks:
+            t0, timed = time.perf_counter(), 0  # the kernels' build, warm-up steps, a capture
+        else:
+            timed += n
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    if args.steps > 1:
-        print(f"{(args.steps - 1) / (time.perf_counter() - t0):.3f} steps/s after the first "
-              f"step", flush=True)
+    if timed:
+        print(f"{timed / (time.perf_counter() - t0):.3f} steps/s over the {timed} steps after "
+              f"the first call, the warm-up steps and the capture", flush=True)
     if args.workdir:
         if cfg.io.ckpt_every > 0:
             print(f"saved checkpoint {checkpoint.save_state(ckpt_dir, state, state.step)}",

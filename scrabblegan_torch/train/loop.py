@@ -3,19 +3,29 @@
 the final GIF.
 
 Port of scrabblegan_tpu/train/loop.py (`Trainer`). The parts:
-- batches: `train/batches.py` (JAX's draws in JAX's order). A `_Prefetcher`
-  thread assembles one epoch's batches ahead of the loop and pins them; the
-  loop's own thread copies each to the card with `non_blocking=True` on
-  the stream the step runs on, so no other stream is involved and the
-  caching host allocator keeps each pinned buffer until its copy is done.
-  The thread makes exactly one epoch's batches and is joined before the
-  epoch's artifacts draw theirs, so the batch stream is the same with and
-  without prefetching: JAX's synchronous (`prefetch_depth` 0) stream;
-- the step: `train/step.py`'s `make_train_step`. Its 16 metrics are 0-d
-  tensors on the device; each step stacks them into one (16,) tensor and
-  every `flush_every = max(1, min(32, log_every))` steps the stacked block
-  is fetched with one `.cpu()`, the newest step kept out of the fetch so
-  the device stays a step ahead of the host: one host sync a block;
+- batches: `train/batches.py` (JAX's draws in JAX's order), K =
+  `parallel.steps_per_call` batches a call (`Batches.next_chunk`, JAX's
+  `next_batch`). A `_Prefetcher` thread assembles one epoch's chunks ahead
+  of the loop and pins them; the chunked step copies each batch to the card
+  with `non_blocking=True` on the stream the step runs on, so no other
+  stream is involved and the caching host allocator keeps each pinned
+  buffer until its copy is done. The thread makes exactly one epoch's
+  chunks and is joined before the epoch's artifacts draw theirs, so the
+  batch stream is the same with and without prefetching: JAX's synchronous
+  (`prefetch_depth` 0) stream. An epoch is `batches_per_epoch // K` calls;
+- the step: `train/step.py`'s `make_chunked_train_step` for every K, 1
+  included: CUDA graphs on the card (the counterpart of JAX's jitted step),
+  the eager body on the CPU. A call returns its K steps' 16 metrics as one
+  (16, K) device tensor, and every `flush_every = max(1, min(32,
+  log_every))` calls the pending blocks are fetched with one `.cpu()`, the
+  newest call kept out of the fetch so the device stays a call ahead of
+  the host: one host sync a block;
+- the stall watchdog (`utils/watchdog.py`), when `io.stall_timeout_s` > 0,
+  as JAX wires it: started before the state is built, with a grace window
+  of `io.compile_grace_s` for the kernels' build and a restore, one before
+  each graph's capture (JAX's grace wraps each cold compile) and one before
+  the first epoch's artifacts; it beats at each metric flush and after each
+  epoch's loop and artifacts, and touches <workdir>/.heartbeat;
 - the divergence guard: the run stops at the flush that shows a non-finite
   g_loss_final or d_loss, before that epoch's artifacts;
 - per epoch (`save_epoch_artifacts`): standing statistics once
@@ -27,8 +37,7 @@ Port of scrabblegan_tpu/train/loop.py (`Trainer`). The parts:
 Known divergences from the JAX Trainer: with z_source='noise' the step's z
 is drawn from a `torch.Generator` seeded with `cfg.seed + 1` where JAX
 splits a `jax.random` key, so noise-mode runs see other z; the grid carries
-its labels in a .txt file beside it (`utils/viz.py`). `io.stall_timeout_s`
-> 0 (the watchdog, utils/watchdog.py) is not ported and raises.
+its labels in a .txt file beside it (`utils/viz.py`).
 """
 
 from __future__ import annotations
@@ -55,7 +64,8 @@ from scrabblegan_torch.train.metrics import SummaryWriter
 from scrabblegan_torch.train.standing import serving_override
 from scrabblegan_torch.train.standing import standing_stats as _standing_stats
 from scrabblegan_torch.train.state import TrainState, create_train_state, new_train_state
-from scrabblegan_torch.train.step import METRIC_NAMES, make_train_step, normalize_images
+from scrabblegan_torch.train.step import (METRIC_NAMES, make_chunked_train_step,
+                                          normalize_images)
 from scrabblegan_torch.utils.viz import make_gif, save_epoch_grid
 
 
@@ -128,9 +138,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, workdir: Optional[str] = None, verbose: bool = True,
                  device: str | torch.device = "cuda"):
-        if cfg.io.stall_timeout_s > 0:
-            raise NotImplementedError("io.stall_timeout_s > 0: the stall watchdog "
-                                      "(utils/watchdog.py) is not ported yet")
         self.cfg = cfg
         self.verbose = verbose
         self.device = resolve_device(device)
@@ -148,6 +155,9 @@ class Trainer:
         self.epoch_secs: list[float] = []  # batch-loop wall time per epoch, artifacts excluded
         self.artifact_secs: list[dict] = []  # each save_epoch_artifacts' parts, seconds
         self._gate_extractor = None
+        self.steps_per_call = max(1, int(cfg.parallel.steps_per_call))
+        self.chunk = None  # the chunked step of the last `train` call
+        self.watchdog = None  # the stall watchdog of the last `train` call, if on
 
     @property
     def dataset(self):
@@ -177,17 +187,15 @@ class Trainer:
         self.batches.load(read_dir, style_dir, words_file)
 
     # ------------------------------------------------------------------ batch
-    def _host_batch(self) -> dict:
-        """The next batch as CPU tensors, pinned when the steps run on a card."""
+    def _host_chunk(self) -> dict:
+        """The next K batches, stacked, as CPU tensors, pinned when the steps
+        run on a card."""
         pin = self.device.type == "cuda"
         out = {}
-        for key, value in self.batches.assemble().items():
+        for key, value in self.batches.next_chunk(self.steps_per_call).items():
             t = torch.from_numpy(value)
             out[key] = t.pin_memory() if pin else t
         return out
-
-    def _to_device(self, batch: dict) -> dict:
-        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
 
     # ------------------------------------------------------------------ train
     def train(self, epochs: Optional[int] = None, batches_per_epoch: Optional[int] = None,
@@ -200,20 +208,47 @@ class Trainer:
         if warning:
             print(warning, file=sys.stderr, flush=True)
 
+        watchdog = None
+        if cfg.io.stall_timeout_s > 0:
+            from scrabblegan_torch.train.graphs import CAPTURE_LOCK
+            from scrabblegan_torch.utils.watchdog import StallWatchdog, device_roundtrip_probe
+
+            watchdog = StallWatchdog(cfg.io.stall_timeout_s,
+                                     touch_file=os.path.join(self.workdir, ".heartbeat"),
+                                     probe=device_roundtrip_probe(self.device, CAPTURE_LOCK)
+                                     ).start()
+            watchdog.grace(cfg.io.compile_grace_s)  # the kernels' build, a checkpoint restore
+        self.watchdog = watchdog
+        try:
+            return self._train(epochs, batches_per_epoch, resume, profile_steps, watchdog)
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+
+    def _train(self, epochs: int, batches_per_epoch: int, resume: bool, profile_steps: int,
+               watchdog) -> TrainState:
+        cfg = self.cfg
         state = self.init_state(resume=resume)
-        step_fn = make_train_step(cfg, state.models)
+        if watchdog:
+            watchdog.beat()
+        self.chunk = chunk = make_chunked_train_step(cfg, state.models)
+        if watchdog and chunk.graphs is not None:
+            chunk.graphs.before_capture = lambda: watchdog.grace(cfg.io.compile_grace_s)
         start_step = state.step
         start_epoch = start_step // batches_per_epoch
         writer = SummaryWriter(self.gen_path, append=start_step > 0)
         z_gen = torch.Generator().manual_seed(cfg.seed + 1)
         noise = cfg.shared.z_source == "noise"
+        k = self.steps_per_call
         bsz, latent = cfg.shared.batch_size, cfg.shared.latent_dim
 
         def draw_z():
             if not noise:
                 return None
-            return torch.randn((bsz, latent), generator=z_gen).to(self.device, non_blocking=True)
+            z = torch.randn((k, bsz, latent), generator=z_gen)
+            return z.pin_memory() if self.device.type == "cuda" else z
 
+        calls_per_epoch = max(1, batches_per_epoch // k)
         if self.verbose:
             where = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
                      else "cpu")
@@ -222,6 +257,8 @@ class Trainer:
             print(f"no. batch_per_epoch:   {batches_per_epoch}")
             print(f"epoch size:            {epochs}")
             print(f"device:                {self.device} ({where})")
+            if k > 1 and batches_per_epoch % k:
+                print(f"steps_per_call={k}: epoch rounded to {calls_per_epoch * k} batches")
             print("training...", flush=True)
 
         log_every = (int(cfg.io.log_every) if cfg.io.log_every
@@ -230,25 +267,29 @@ class Trainer:
         diverged = [None]
 
         def flush_pending(pending):
-            """One host fetch for a block of steps' stacked metrics, then
+            """One host fetch for a block of calls' (16, K) metrics, then
             each step's row to the summaries and the log."""
             if not pending:
                 return
             block = torch.stack([m for (_, _, m) in pending]).cpu().numpy()
-            for (e_idx, b_idx, _), vec in zip(pending, block):
-                row = dict(zip(METRIC_NAMES, vec))
-                writer.write_batch(e_idx, b_idx, row)
-                if diverged[0] is None and not (np.isfinite(row["g_loss_final"])
-                                                and np.isfinite(row["d_loss"])):
-                    diverged[0] = (e_idx, b_idx)
-                if self.verbose and (b_idx + 1) % log_every == 0:
-                    print(f">{e_idx + 1}, {b_idx + 1}/{batches_per_epoch}, "
-                          f"d={row['d_loss']:.3f}, d_real={row['d_loss_real']:.3f}, "
-                          f"d_fake={row['d_loss_fake']:.3f}, g_trad={row['g_loss']:.3f}, "
-                          f"r_loss_fake={row['r_loss_fake']:.3f}, "
-                          f"g_loss={row['g_loss_final']:.3f}, "
-                          f"r={row['r_loss_real']:.3f}, s={row['s_loss_real']:.3f}",
-                          flush=True)
+            if watchdog:
+                watchdog.beat()
+            for (e_idx, call_idx, _), cols in zip(pending, block):
+                for i in range(k):
+                    b_idx = call_idx * k + i
+                    row = dict(zip(METRIC_NAMES, cols[:, i]))
+                    writer.write_batch(e_idx, b_idx, row)
+                    if diverged[0] is None and not (np.isfinite(row["g_loss_final"])
+                                                    and np.isfinite(row["d_loss"])):
+                        diverged[0] = (e_idx, b_idx)
+                    if self.verbose and (b_idx + 1) % log_every == 0:
+                        print(f">{e_idx + 1}, {b_idx + 1}/{calls_per_epoch * k}, "
+                              f"d={row['d_loss']:.3f}, d_real={row['d_loss_real']:.3f}, "
+                              f"d_fake={row['d_loss_fake']:.3f}, g_trad={row['g_loss']:.3f}, "
+                              f"r_loss_fake={row['r_loss_fake']:.3f}, "
+                              f"g_loss={row['g_loss_final']:.3f}, "
+                              f"r={row['r_loss_real']:.3f}, s={row['s_loss_real']:.3f}",
+                              flush=True)
 
         if profile_steps:
             from scrabblegan_torch.utils import profiling
@@ -257,26 +298,25 @@ class Trainer:
             timer = profiling.StepTimer(warmup=min(2, max(0, profile_steps - 1)))
             with profiling.trace(trace_dir):
                 for _ in range(profile_steps):
-                    batch = self._to_device(self._host_batch())
+                    batches = self._host_chunk()
                     with profiling.annotate("train_step"):
-                        metrics = step_fn(state, batch, draw_z())
+                        metrics = chunk(state, batches, draw_z())
                     timer.tick(metrics)
             if self.verbose:
-                print(f"[profile] {profile_steps} steps traced to {trace_dir}; "
-                      f"{timer.steps_per_sec:.2f} steps/s")
+                print(f"[profile] {profile_steps} calls traced to {trace_dir}; "
+                      f"{timer.steps_per_sec * k:.2f} steps/s")
 
+        first_artifacts = True
         for epoch_idx in range(start_epoch, epochs):
             t0 = time.perf_counter()
             depth = cfg.parallel.prefetch_depth
-            feed = (_Prefetcher(self._host_batch, batches_per_epoch, depth) if depth > 0
+            feed = (_Prefetcher(self._host_chunk, calls_per_epoch, depth) if depth > 0
                     else None)
             pending = []
             try:
-                for b_idx in range(batches_per_epoch):
-                    batch = self._to_device(feed.get() if feed else self._host_batch())
-                    metrics = step_fn(state, batch, draw_z())
-                    pending.append((epoch_idx, b_idx,
-                                    torch.stack([metrics[k] for k in METRIC_NAMES])))
+                for call_idx in range(calls_per_epoch):
+                    batches = feed.get() if feed else self._host_chunk()
+                    pending.append((epoch_idx, call_idx, chunk(state, batches, draw_z())))
                     if len(pending) > flush_every:
                         flush_pending(pending[:-1])
                         pending = pending[-1:]
@@ -289,6 +329,8 @@ class Trainer:
             writer.end_epoch()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            if watchdog:
+                watchdog.beat()
             self.last_epoch_secs = time.perf_counter() - t0
             self.epoch_secs.append(self.last_epoch_secs)
             if self.verbose:
@@ -300,7 +342,13 @@ class Trainer:
                       f"{diverged[0][1] + 1}; stopping (state not saved — last good export: "
                       f"epoch {epoch_idx})", flush=True)
                 break
+            if first_artifacts:
+                first_artifacts = False
+                if watchdog:
+                    watchdog.grace(cfg.io.compile_grace_s)
             self.save_epoch_artifacts(state, epoch_idx + 1, final=epoch_idx + 1 == epochs)
+            if watchdog:
+                watchdog.beat()
 
         writer.close()
         make_gif(self.gen_path, "biggan.gif")

@@ -41,8 +41,16 @@ NETWORKS = "gdrw"  # the ModelBundle's order: generator, discriminator, recogniz
 class TrainState:
     models: ModelBundle
     opt_states: dict[str, OptState]  # keyed by NETWORKS
-    step: int = 0
+    step: int = 0  # steps taken, on the host: logs, epochs and checkpoint names
     g_ema: list[torch.Tensor] | None = None  # G's parameters' EMA, in G.parameters() order
+    # the step counter on the device, 0-d int64: a step call sets it from
+    # `step` and the step body advances it (the disc_iters cadence reads it)
+    step_t: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.step_t is None:
+            device = next(self.models.generator.parameters()).device
+            self.step_t = torch.full((), self.step, dtype=torch.int64, device=device)
 
     def params(self, net: str) -> list[torch.Tensor]:
         return list(self.modules()[net].parameters())

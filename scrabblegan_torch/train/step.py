@@ -25,8 +25,21 @@ modes do not read. Noise z, for z_source='noise', is an argument of the
 step; the default style path draws no random numbers (the conv R has no
 dropout).
 
-Not ported yet, each raising NotImplementedError: the chunked step
-(`parallel.steps_per_call` > 1), `shared.remat` and the parallel modes.
+`shared.remat` runs G's own pass under the non-reentrant
+`torch.utils.checkpoint`: its activations are recomputed in the backward,
+where no statistics record is open, so the recompute proposes nothing and
+the statistics are G's first pass's (the power iteration recomputes from
+the same stored u).
+
+One body serves every path (`make_step_body`): its inputs are device
+tensors, it reads and writes nothing on the host, and it updates the state
+in place, the optimizers' counts and moments included (train/optim.py). The
+`disc_iters` cadence is a mask on the device: G's parameters, moments, count
+and EMA take `torch.where(take_g, new, old)`, bitwise what a skip gives
+(JAX's `lax.cond`); at `disc_iters` 1 there is no mask. `make_train_step`
+runs the body eagerly, one step a call; `make_chunked_train_step` runs K
+steps a call, as CUDA graphs on the card (train/graphs.py) and eagerly on
+the CPU. Not ported, raising NotImplementedError: the parallel modes.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from typing import Callable, Mapping
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from scrabblegan_torch.config import Config
 from scrabblegan_torch.models.build import ModelBundle
@@ -42,7 +56,7 @@ from scrabblegan_torch.ops.balance import balanced_fanout, gradient_balance
 from scrabblegan_torch.ops.ctc import ctc_loss
 from scrabblegan_torch.ops.layers import commit_stats, record_stats
 from scrabblegan_torch.ops.losses import DISC_LOSS_REGISTRY, GEN_LOSS_REGISTRY
-from scrabblegan_torch.train.optim import apply_updates, make_optimizers
+from scrabblegan_torch.train.optim import apply_updates, make_optimizers, update_ema
 from scrabblegan_torch.train.state import NETWORKS, TrainState
 
 # The 16 per-step statistics, in the JAX step's order.
@@ -74,29 +88,26 @@ def _frozen(module: torch.nn.Module) -> Callable:
     return call
 
 
+def stage_batch(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:
+    """A batch's leaves as tensors on `device`, dtypes kept."""
+    return {key: torch.as_tensor(value).to(device, non_blocking=True)
+            for key, value in batch.items()}
+
+
 def _check_supported(cfg: Config) -> None:
-    if cfg.parallel.steps_per_call > 1:
-        raise NotImplementedError("parallel.steps_per_call > 1 (the chunked step) is not "
-                                  "ported yet")
-    if cfg.shared.remat:
-        raise NotImplementedError("shared.remat (rematerialising G) is not ported yet")
     if cfg.parallel.fsdp or cfg.parallel.model_parallel > 1:
         raise NotImplementedError("the parallel modes (fsdp, model_parallel) are not "
                                   "ported yet")
 
 
-def make_train_step(cfg: Config, models: ModelBundle):
-    """Returns step(state, batch, z=None) -> {metric name: 0-d float32 tensor}.
+def make_step_body(cfg: Config, models: ModelBundle):
+    """Returns body(state, inputs, z) -> (16,) float32 metrics on the device.
 
-    batch holds numpy arrays or tensors in the JAX package's layout:
-      real_imgs    (B, 32, 16 Lr, C) uint8, or float32 in [-1, 1]
-      real_labels  (B, Lr) int
-      style_imgs   (B, 32, 160, C) uint8 or float32
-      fake_labels  (B, Lf) int
-    and in 'padded' shape mode real_lengths and fake_lengths (B,), the true
-    word lengths. z (B, latent_dim) is required with z_source='noise'. The
-    step updates `state` in place: parameters, statistics, optimizer states,
-    EMA and step counter."""
+    `inputs` holds the batch's leaves as device tensors (`stage_batch`), z
+    (B, latent_dim) for z_source='noise' likewise. The body takes one step:
+    the forwards, one backward, the statistics, the four updates and the EMA,
+    all in place, and advances `state.step_t`; it leaves `state.step` to its
+    caller."""
     _check_supported(cfg)
     o = cfg.optimizer
     disc_loss_fn = DISC_LOSS_REGISTRY[o.loss_fn]
@@ -111,19 +122,28 @@ def make_train_step(cfg: Config, models: ModelBundle):
     grad_norm_balance = use_r and o.apply_gradient_balance and o.balance_mode == "grad_norm"
     padded = cfg.parallel.shape_mode == "padded"
     style_z = cfg.shared.z_source == "style"
+    remat = cfg.shared.remat
     opts = make_optimizers(cfg)
     G, D, R, W = models.generator, models.discriminator, models.recognizer, models.style_promoter
     device = next(G.parameters()).device
 
-    def forward_losses(batch: Mapping, z: torch.Tensor | None):
-        real_imgs = normalize_images(batch["real_imgs"], device)
-        style_imgs = normalize_images(batch["style_imgs"], device)
-        real_labels = torch.as_tensor(batch["real_labels"]).to(device).long()
-        fake_labels = torch.as_tensor(batch["fake_labels"]).to(device).long()
+    def g_forward(labels, z, lengths, style_imgs):
+        return G(labels, z, lengths, style_imgs=style_imgs).float()
+
+    def metric(v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.detach().float().mean()
+        return torch.full((), v, dtype=torch.float32, device=device)  # no host copy
+
+    def forward_losses(inputs: Mapping[str, torch.Tensor], z: torch.Tensor | None):
+        real_imgs = normalize_images(inputs["real_imgs"], device)
+        style_imgs = normalize_images(inputs["style_imgs"], device)
+        real_labels = inputs["real_labels"].long()
+        fake_labels = inputs["fake_labels"].long()
         bsz = fake_labels.shape[0]
         if padded:
-            real_lengths = torch.as_tensor(batch["real_lengths"]).to(device).long()
-            fake_lengths = torch.as_tensor(batch["fake_lengths"]).to(device).long()
+            real_lengths = inputs["real_lengths"].long()
+            fake_lengths = inputs["fake_lengths"].long()
             cols = torch.arange(real_imgs.shape[3] // 8, device=device)[None, :]
             mask_real = (cols < 2 * real_lengths[:, None]).float()
             mask_fake = (cols < 2 * fake_lengths[:, None]).float()
@@ -135,10 +155,14 @@ def make_train_step(cfg: Config, models: ModelBundle):
         # G's own pass: its statistics are kept
         if not style_z and z is None:
             raise ValueError("z_source='noise' needs z")
+        g_args = (fake_labels, None if style_z else z, fake_lengths if padded else None,
+                  style_imgs if style_z else None)
         with record_stats() as g_stats:
-            gen_imgs = G(fake_labels, None if style_z else z.to(device),
-                         fake_lengths if padded else None,
-                         style_imgs=style_imgs if style_z else None).float()
+            if remat:  # the backward recomputes G's activations, outside any record
+                gen_imgs = checkpoint(g_forward, *g_args, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                gen_imgs = g_forward(*g_args)
         if grad_norm_balance:
             gen_for_adv, gen_for_ctc = balanced_fanout(gen_imgs, o.balance_alpha)
         else:
@@ -214,30 +238,95 @@ def make_train_step(cfg: Config, models: ModelBundle):
         values = (d_loss, d_loss_real, d_loss_fake, r_real, r_fake, r_balanced,
                   g_loss, g_added, g_balanced, g_final, alpha, r_fake_std, g_loss_std,
                   s_loss, s_loss_pos, s_loss_neg)
-        metrics = {name: torch.as_tensor(v, dtype=torch.float32, device=device).detach().mean()
-                   for name, v in zip(METRIC_NAMES, values)}
+        metrics = torch.stack([metric(v) for v in values])
         return total, metrics, (g_stats, d_stats, r_stats, w_stats)
 
-    def step(state: TrainState, batch: Mapping, z: torch.Tensor | None = None
-             ) -> dict[str, torch.Tensor]:
-        total, metrics, records = forward_losses(batch, z)
+    def body(state: TrainState, inputs: Mapping[str, torch.Tensor],
+             z: torch.Tensor | None = None) -> torch.Tensor:
+        total, metrics, records = forward_losses(inputs, z)
         total.backward()
         for record in records:
             commit_stats(record)
-        take_g = (state.step + 1) % o.disc_iters == 0
+        # JAX's lax.cond on the cadence; its static fast path at disc_iters == 1
+        take_g = None if o.disc_iters == 1 else (state.step_t + 1) % o.disc_iters == 0
         for net in NETWORKS:
             params = state.params(net)
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            if net != "g" or take_g:
-                updates, state.opt_states[net] = opts[net].update(grads, state.opt_states[net])
-                apply_updates(params, updates)
+            take = take_g if net == "g" else None
+            updates, _ = opts[net].update(grads, state.opt_states[net], take)
+            apply_updates(params, updates, take)
             for p in params:
                 p.grad = None
-        if take_g and state.g_ema is not None:
-            with torch.no_grad():
-                torch._foreach_mul_(state.g_ema, o.g_ema_decay)
-                torch._foreach_add_(state.g_ema, state.params("g"), alpha=1.0 - o.g_ema_decay)
-        state.step += 1
+        if state.g_ema is not None:
+            update_ema(state.g_ema, state.params("g"), o.g_ema_decay, take_g)
+        state.step_t.add_(1)
         return metrics
 
+    return body
+
+
+def make_train_step(cfg: Config, models: ModelBundle):
+    """Returns step(state, batch, z=None) -> {metric name: 0-d float32 tensor}.
+
+    batch holds numpy arrays or tensors in the JAX package's layout:
+      real_imgs    (B, 32, 16 Lr, C) uint8, or float32 in [-1, 1]
+      real_labels  (B, Lr) int
+      style_imgs   (B, 32, 160, C) uint8 or float32
+      fake_labels  (B, Lf) int
+    and in 'padded' shape mode real_lengths and fake_lengths (B,), the true
+    word lengths. z (B, latent_dim) is required with z_source='noise'. The
+    step runs the body eagerly and updates `state` in place: parameters,
+    statistics, optimizer states, EMA and step counters."""
+    body = make_step_body(cfg, models)
+    device = next(models.generator.parameters()).device
+
+    def step(state: TrainState, batch: Mapping, z: torch.Tensor | None = None
+             ) -> dict[str, torch.Tensor]:
+        state.step_t.fill_(state.step)
+        metrics = body(state, stage_batch(batch, device),
+                       None if z is None else torch.as_tensor(z).to(device))
+        state.step += 1
+        return dict(zip(METRIC_NAMES, metrics.unbind()))
+
     return step
+
+
+def make_chunked_train_step(cfg: Config, models: ModelBundle):
+    """K = the batches' leading size train steps a call: the port of JAX's
+    `make_chunked_train_step` (lax.scan over a stacked batch), the same as K
+    sequential steps, the cadence on the step counter.
+
+    Returns chunk(state, batches, z=None) -> (16, K) float32 metrics on the
+    device, a fresh tensor each call. batches: `make_train_step`'s leaves,
+    each stacked with a leading K (numpy, host tensors, pinned for an
+    asynchronous copy, or device tensors); z: (K, B, latent_dim) for
+    z_source='noise'. On a CUDA device the body runs as CUDA graphs, one a
+    batch-shape signature: its first steps run eagerly as the capture's
+    warm-up, the next is captured, and every later one replays
+    (train/graphs.py); a capture that fails raises. On the CPU it runs
+    eagerly. `chunk.graphs` is the `StepGraphs` (None on the CPU)."""
+    body = make_step_body(cfg, models)
+    device = next(models.generator.parameters()).device
+    graphs = None
+    if device.type == "cuda":
+        from scrabblegan_torch.train.graphs import StepGraphs
+
+        graphs = StepGraphs(body, device)
+
+    def chunk(state: TrainState, batches: Mapping, z=None) -> torch.Tensor:
+        batches = {key: torch.as_tensor(value) for key, value in batches.items()}
+        z = None if z is None else torch.as_tensor(z)
+        k = next(iter(batches.values())).shape[0]
+        state.step_t.fill_(state.step)
+        if graphs is not None:
+            out = graphs(state, batches, z)
+        else:
+            out = torch.stack([
+                body(state, stage_batch({key: v[i] for key, v in batches.items()}, device),
+                     None if z is None else z[i].to(device))
+                for i in range(k)], dim=1)
+        state.step += k
+        return out
+
+    chunk.graphs = graphs
+    return chunk

@@ -62,7 +62,11 @@ def runs(tmp_path_factory):
     logs = {"A": run("--init", str(init), "--steps", "3", "--workdir", str(root / "A")),
             "B1": run("--init", str(init), "--steps", "2", "--workdir", str(root / "B")),
             "B2": run("--init", str(init), "--steps", "1", "--workdir", str(root / "B"))}
-    return root, cfg, logs
+    yield root, cfg, logs
+    # ~4.8 GB at full width, which pytest would keep in its last three base
+    # temporary directories: the suite's full-width tests share one disk
+    for heavy in (init, *root.rglob("state.pt"), *root.rglob("variables.npz")):
+        heavy.unlink()
 
 
 def assert_same(a, b, where=""):
@@ -140,7 +144,8 @@ def tiny_state(seed: int, ema: bool = True, width: int = 3) -> TrainState:
             for p in m.parameters():
                 p.copy_(torch.randn(p.shape, generator=gen))
         mods.append(m)
-    opt = {n: OptState(seed, [torch.randn(2, width, generator=gen), torch.randn(2, generator=gen)])
+    opt = {n: OptState(torch.tensor(seed, dtype=torch.int32),
+                       [torch.randn(2, width, generator=gen), torch.randn(2, generator=gen)])
            for n in NETWORKS}
     g_ema = [p.detach() + 1 for p in mods[0].parameters()] if ema else None
     return TrainState(ModelBundle(*mods), opt, step=seed, g_ema=g_ema)

@@ -17,7 +17,8 @@ standing-statistics batches, `io.ckpt_every` 2:
   CLI fetches its printed metrics once a step;
 - the divergence guard: a step made to return NaN stops the run at the
   flush that shows it, before any artifact;
-- `io.stall_timeout_s` > 0 raises (the watchdog is not ported).
+- `io.stall_timeout_s` > 0 no longer raises: the Trainer starts the stall
+  watchdog (utils/watchdog.py; its own tests are test_torch_watchdog.py).
 """
 
 import contextlib
@@ -113,14 +114,17 @@ def train_and_resume(mode, data, workdir):
                 return _original(self, *a, **k)
         mp.setattr(loop.Trainer, name, uncounted)
     cfg = load_config(None, {**BASE, **MODES[mode]})
+    # the checkpoints (1.3 GB each) and exports take ~4 GB at full width; the
+    # tests read their directories and the small files beside them, and the
+    # resume reads only the checkpoint, so the first run's exports go first
     try:
         first = run(cfg, workdir, data, epochs=2, resume=False)
         fetches = counter.count
+        for export in workdir.rglob("variables.npz"):
+            export.unlink()
         second = run(cfg, workdir, data, epochs=3, resume=True)
     finally:
         mp.undo()
-        # the checkpoints and exports take ~4 GB at full width; the tests
-        # read their directories and the small files beside them
         for heavy in (*workdir.rglob("state.pt"), *workdir.rglob("variables.npz")):
             heavy.unlink()
     return mode, cfg, workdir, first, second, fetches
@@ -183,13 +187,50 @@ def test_one_host_fetch_a_flush_block(runs):
 
 def test_steps_cli_fetches_its_metrics_once_a_step(monkeypatch, capsys):
     monkeypatch.setattr(cli, "create_train_state", fast_state)
-    monkeypatch.setattr(cli, "make_train_step", fake_step_factory(nan_at=0))
+    monkeypatch.setattr(cli, "make_chunked_train_step", fake_chunk_factory(nan_at=0))
     counter = SyncCounter(monkeypatch)
     assert train_main(["--device", "cpu", "--steps", "2", "--config", "none",
                        "--batch-size", "2", "--length", "2"]) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step ")]
     assert len(lines) == 2 and all(f"{m}=" in lines[1] for m in METRIC_NAMES)
     assert counter.count == 2
+
+
+def test_steps_cli_runs_steps_per_call_a_call(monkeypatch, capsys):
+    """`--steps 5` at `parallel.steps_per_call` 2 makes calls of 2, 2 and 1
+    steps, fetches the metrics once a call, and feeds the chunk the batches
+    and z that 5 calls of one step get: step s's from rng (seed, s)."""
+    monkeypatch.setattr(cli, "create_train_state", fast_state)
+    calls = {}
+    for k in (2, 1):
+        make = fake_chunk_factory(nan_at=0)
+        calls[k] = []
+
+        def recording(cfg, models, _make=make, _calls=calls[k]):
+            chunk = _make(cfg, models)
+
+            def call(state, batches, z=None):
+                _calls.append((batches, z))
+                return chunk(state, batches, z)
+            call.graphs = None
+            return call
+        monkeypatch.setattr(cli, "make_chunked_train_step", recording)
+        counter = SyncCounter(monkeypatch)
+        assert train_main(["--device", "cpu", "--steps", "5", "--config", "none",
+                           "--batch-size", "2", "--length", "2",
+                           "--set", f"parallel.steps_per_call={k}",
+                           "--set", "shared.z_source=noise"]) == 0
+        lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step ")]
+        assert [ln.split(":")[0] for ln in lines] == [f"step {s}" for s in range(1, 6)]
+        assert counter.count == len(calls[k]) == {2: 3, 1: 5}[k]
+        monkeypatch.undo()
+        monkeypatch.setattr(cli, "create_train_state", fast_state)
+    assert [len(z) for _, z in calls[2]] == [2, 2, 1]
+    for key in calls[1][0][0]:
+        np.testing.assert_array_equal(np.concatenate([b[key] for b, _ in calls[2]]),
+                                      np.concatenate([b[key] for b, _ in calls[1]]))
+    np.testing.assert_array_equal(np.concatenate([z for _, z in calls[2]]),
+                                  np.concatenate([z for _, z in calls[1]]))
 
 
 def fake_step_factory(nan_at: int):
@@ -205,9 +246,26 @@ def fake_step_factory(nan_at: int):
     return make
 
 
+def fake_chunk_factory(nan_at: int):
+    """make_chunked_train_step's stand-in: K fake steps a call, their
+    metrics as one (16, K) tensor."""
+    make_step = fake_step_factory(nan_at)
+
+    def make(cfg, models):
+        step = make_step(cfg, models)
+
+        def chunk(state, batches, z=None):
+            k = len(next(iter(batches.values())))
+            return torch.stack([torch.stack([m[n] for n in METRIC_NAMES])
+                                for m in (step(state, None) for _ in range(k))], dim=1)
+        chunk.graphs = None  # the CPU runs no graphs
+        return chunk
+    return make
+
+
 def test_divergence_guard_stops_the_run(data, tmp_path, monkeypatch):
     monkeypatch.setattr(loop, "create_train_state", fast_state)
-    monkeypatch.setattr(loop, "make_train_step", fake_step_factory(nan_at=2))
+    monkeypatch.setattr(loop, "make_chunked_train_step", fake_chunk_factory(nan_at=2))
     cfg = load_config(None, {**BASE, "io.log_every": "1", "optimizer.g_ema_decay": "0"})
     trainer = loop.Trainer(cfg, workdir=str(tmp_path), device="cpu", verbose=False)
     trainer.load_data(**data)
@@ -224,7 +282,17 @@ def test_divergence_guard_stops_the_run(data, tmp_path, monkeypatch):
     assert not list((tmp_path / "output").glob("image_at_epoch_*"))
 
 
-def test_unported_watchdog_raises(tmp_path):
-    cfg = load_config(None, {"io.stall_timeout_s": "60"})
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        loop.Trainer(cfg, workdir=str(tmp_path), device="cpu")
+def test_unported_watchdog_raises(tmp_path, data, monkeypatch):
+    """The watchdog is ported: `io.stall_timeout_s` > 0 raises no more. The
+    Trainer starts it, it beats at each flush and after each epoch, touches
+    the heartbeat file, and stops with the run."""
+    monkeypatch.setattr(loop, "create_train_state", fast_state)
+    monkeypatch.setattr(loop, "make_chunked_train_step", fake_chunk_factory(nan_at=0))
+    cfg = load_config(None, {**BASE, "io.stall_timeout_s": "60", "io.ckpt_every": "0",
+                             "io.export_quality_samples": "0"})
+    trainer = loop.Trainer(cfg, workdir=str(tmp_path), device="cpu", verbose=False)
+    trainer.load_data(**data)
+    trainer.train(epochs=1, batches_per_epoch=2, resume=False)
+    wd = trainer.watchdog
+    assert wd is not None and wd._stop.is_set() and wd.beats >= 3
+    assert (tmp_path / ".heartbeat").exists()
