@@ -41,7 +41,7 @@ Phases, one line each or more:
    core, its grads vs autograd through the plain core;
 8. the train step at batch 16 for configs/recommended.json (padded) and for
    the JAX bench's bucketed len-5 config, from seeded flax-layout weights
-   (attention sigma != 0): 10 steps each through the kernels, finite
+   (attention sigma != 0): 6 steps each through the kernels, finite
    metrics, 7 forward and 7 backward launches a step; step 1 (metrics,
    gradients, updated parameters) against the same step on the plain cores,
    both under cuDNN's deterministic algorithms, so that two runs agree;
@@ -55,16 +55,17 @@ Phases, one line each or more:
    device alone per kernel, with the plan's grids, beside the plain
    backward, the library's backward, the bound and the floor of as many
    empty launches; the eager train steps/s on the kernels and on the plain
-   cores (four turns of 20 steps, 50 before phase 18 took their time;
+   cores (four turns of 10 steps; 50, then 20, before phases 18 and 20;
    window means and the median of per-step times),
-   and a profiler trace of 5 steps (device busy share, kernel launches a
+   and a profiler trace of 2 steps (device busy share, kernel launches a
    step, top kernel classes, the attention kernels' share, backward calls
    whose cotangent had to be copied), each printed with the card's name and
    power limit.
 
 The 'fused' attention dataflow (the whole non-local block as one kernel,
 csrc/fused_block_fwd.cu) adds four phases, each run after the phase of the
-same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 18, 15-17, 19):
+same path above (order 1, 2, 20, 3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 18,
+15-17, 19, 21):
 
 11. the fused kernel vs its plain version (the composition on the plain
    core) at G's B3 and D's and W's B1 shapes for L = 1, 5, 10, a ragged
@@ -78,7 +79,7 @@ same path above (order 1-3, 11, 4-6, 12, 7, 8, 13, 9, 14, 10, then 18, 15-17, 19
    images of phase 4 (G_TOL_PLAIN); then images/s of both dataflows in
    turns nhwc1, fused, fused, nhwc1, and the fused kernel's and the plain
    version's ms;
-13. the train step under 'fused' for both configurations of phase 8, 10
+13. the train step under 'fused' for both configurations of phase 8, 6
    steps each: 7 fused launches a step, and in the backward 7 core forwards
    (the recompute) and 7 core backwards; finite metrics; step 1 against the
    'nhwc1' step at phase 8's tolerances (the two balanced metrics at the
@@ -98,7 +99,7 @@ The captured step adds phase 18, run after phase 10:
    call and of K = 4 more replays (7 forward and 7 backward a step,
    exactly: the counts derive from the steps alone); each graph's capture
    seconds and pool bytes, the replay's and the eager step's peak memory;
-   ms a step (CUDA events around 50 calls of K = 1 and 12 of K = 4:
+   ms a step (CUDA events around 30 calls of K = 1 and 12 of K = 4:
    median, p10-p90) beside phase 10's eager median, a profiler trace of 5
    replays (device busy share, kernel nodes a step, and the attention
    kernels' nodes a replay, which must equal the launches the capture
@@ -151,13 +152,46 @@ phases, run last (after phase 18):
    start, one a captured shape and one before the first artifacts, its
    heartbeat file touched.
 
+The variants, the serving bundle and the FLOP count add two phases and a
+line: phase 20 right after the build, in a child process of its own (its
+lines are printed by the parent), phase 21 and the count last:
+
+20. the four-network step with the DCGAN D and the BiLSTM R
+   (shared.my_disc=1, shared.my_rec=1) at full width, batch 16, for both
+   configurations of phase 8: one float32 step at batch 2, len 2 on the card
+   against the CPU port with dropout on (the masks are a hash of the step
+   and agree bit for bit across devices), at phase 8's tolerances; two eager
+   runs of two steps from one start, bitwise or not, with the dropout masks
+   recorded (both R passes of a step draw the same ones, the next step
+   others); the graph's warm-up, then K = 1 and K = 4 against as many eager
+   steps with dropout on, under cuDNN's deterministic algorithms; a graph
+   of one dropout draw replayed twice: different masks, each the eager draw
+   of its step; the launches a replay (4 forward and 4 backward a step: W
+   B1 x3 and G B3, the DCGAN D's attention takes the plain path), the
+   captured step's ms, device busy share, kernel nodes and traced attention
+   nodes, peak memory; then the train CLI's --steps mode (3 steps, then 2
+   more that resume) and the Trainer (1 epoch of 6 batches, then 1 more
+   that resumes) with the variants;
+21. the serving bundle: G (bf16, noise z) exported at batch 1024, len 5
+   under 'nhwc1' and under 'fused' (train/export.py), loaded and served in
+   a fresh process that cannot import scrabblegan_torch.models or .ops: its
+   images against the eager G's within G_TOL_PLAIN (and whether bitwise),
+   one launch of the core (or the fused kernel) a call, the kernel in a
+   profiler trace of the bundle, images/s beside the eager G's, the export
+   seconds and the bundle's bytes;
+then the FLOP count (utils/flops.py, JAX's conventions) of G's forward at
+batch 1024, len 5 and 10, and of one train step of phase 18's and phase
+20's configurations, each over this run's times as a share of 989 TFLOP/s,
+and the run's seconds.
+
 The dataflow is set through $SCRABBLEGAN_ATTN_DATAFLOW, which the blocks
 read at each call; it is 'nhwc1' outside the 'fused' phases. Each launch
 count is set to 0 just before a path runs and read just after it.
 
 Then one JSON line {"kernels": [...]}: per kernel its launches on the
 main path (`launches`: phase 18's K = 4 replays; for the fused kernel its
-'fused' replay) and on the other paths,
+'fused' replay) and on the other paths (phase 20's K = 4 replays and the
+bundle's first call among them),
 its largest error against the plain version, its ms, the plain version's ms,
 the least time the card could take for the same work (bound_ms: the largest
 of the bytes the call must move over 3.35 TB/s, its operations over 989
@@ -179,6 +213,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import os
@@ -201,10 +236,14 @@ G_TOL_PLAIN = 2e-2  # bf16 images, kernel vs plain core, through the layers afte
 G_TOL_CPU = 1e-3    # f32 images, card vs CPU; cuDNN may pick Winograd or FFT convs
 
 
+T0 = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
     """One result line, on stdout and appended to chiprun_out/chip_smoke.log,
-    which keeps every phase where only the end of stdout is kept."""
-    line = f"[{phase}] " + json.dumps(fields)
+    which keeps every phase where only the end of stdout is kept; t_s is the
+    run's seconds so far."""
+    line = f"[{phase}] " + json.dumps({**fields, "t_s": round(time.perf_counter() - T0, 1)})
     print(line, flush=True)
     LOG.parent.mkdir(exist_ok=True)
     with LOG.open("a") as f:
@@ -302,8 +341,8 @@ def check_images(images: torch.Tensor, batch: int, length: int) -> None:
 
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py:71-72; bf16 ulp
 TRAIN_BATCH = 16
-TRAIN_STEPS = 10
-TIME_STEPS = 20  # steps a timed turn (phase 10; 50 until the captured step's phase 18)
+TRAIN_STEPS = 6
+TIME_STEPS = 10  # steps a timed turn (phase 10; 50, then 20, before phases 18 and 20)
 FWD_PER_STEP = BWD_PER_STEP = 7  # D B1 x3, W B1 x3, G B3 x1 ('adversarial', dead pass skipped)
 # kernel vs plain cores, step 1 (bf16 D/W trunks, where the two cores round
 # the attention output to bf16 at other places): metrics within tol x
@@ -503,10 +542,11 @@ def check_train_step(attention, load_config, synthetic_batch, make_train_step,
 
 
 def check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step,
-                                 METRIC_NAMES) -> None:
+                                 METRIC_NAMES, overrides: dict | None = None,
+                                 phase: str = "8 train step card-vs-cpu") -> None:
     """Phase 8: one float32 step at batch 2, len 2 on the card (kernels, TF32
     off) and on the CPU (plain cores), from the same weights and batch."""
-    cfg = load_config(None, {"shared.batch_size": 2, "io.seq_len": 2})
+    cfg = load_config(None, {"shared.batch_size": 2, "io.seq_len": 2, **(overrides or {})})
     trees = fake_trees(cfg, seed=1)
     batch = synthetic_batch(cfg, 2, 2, np.random.default_rng(1))
     card, cpu = state_of(cfg, trees, "cuda"), state_of(cfg, trees, "cpu")
@@ -523,7 +563,7 @@ def check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step,
             flips.values()):
         raise AssertionError(f"card vs CPU step: metrics {bad}, grads {grads}, G stats {stats}, "
                              f"updated parameters {flips}")
-    say("8 train step card-vs-cpu", dtype="float32", batch=2, length=2, metric_errs=errs,
+    say(phase, dtype="float32", batch=2, length=2, overrides=overrides, metric_errs=errs,
         tol_metrics=CPU_TOL_METRICS, tol_balanced=CPU_TOL_BALANCED, grad_norm_err=grads,
         tol_grads=CPU_TOL_GRAD, g_stats_max_abs_err=stats, updated_param_mismatches=flips)
 
@@ -639,13 +679,13 @@ def time_train_steps(runs: dict, make_train_step, card: str) -> dict:
 
 
 def profile_train_steps(runs: dict, make_train_step, card: str) -> None:
-    """Phase 10: torch.profiler over 5 steps of the bench len-5 config on each
+    """Phase 10: torch.profiler over 2 steps of the bench len-5 config on each
     core: device busy share (union of kernel intervals over the span from the
     first kernel's start to the last's end), kernels a step, and the top
     kernels by device time."""
     kstate, pstate, batches, kcfg, pcfg = runs["bench bucketed len 5"]
     for core, state, cfg in (("kernel", kstate, kcfg), ("plain", pstate, pcfg)):
-        profile_steps(core, state, make_train_step(cfg, state.models), batches[:5], card)
+        profile_steps(core, state, make_train_step(cfg, state.models), batches[:2], card)
 
 
 def device_activity(prof) -> tuple[list, float, float, dict]:
@@ -1297,7 +1337,7 @@ def check_evaluate_and_serve(attention, fused_block, workdir: Path, style_pngs: 
 # ---- phases 18-19: the captured train step, the real-data campaign config ------
 
 GRAPH_K = 4          # steps a call in the K = 4 comparison and timing
-GRAPH_TIME_CALLS = 50  # K = 1 calls timed (phase 18)
+GRAPH_TIME_CALLS = 30  # K = 1 calls timed (phases 18 and 20)
 REMAT_FWD_PER_STEP = FWD_PER_STEP + 1  # the backward recomputes G's B3 forward
 IAM_WORDS, IAM_BATCHES = 300, 8  # phase 19: raw words fabricated; batches of its one epoch
 
@@ -1751,6 +1791,389 @@ def check_iam_campaign(attention, fused_block, data_root: Path) -> dict:
     return {"fwd": counts[0], "bwd": counts[1]}
 
 
+# ---- phase 20: the DCGAN D and the BiLSTM R on the captured step -------------
+
+# W B1 x3 and G B3 x1 a step: the DCGAN D's attention takes the plain path, as
+# JAX builds it without use_pallas, so D's three passes launch no kernel (7
+# with the BigGAN D)
+VARIANT_PER_STEP = (4, 4, 0)
+VARIANT_CLI_STEPS, VARIANT_TRAINER_BATCHES = 3, 6
+
+
+def variant_configs(load_config) -> dict:
+    """Phase 18's two configurations with shared.my_disc and shared.my_rec."""
+    return {name: with_core(dataclasses.replace(cfg, shared=dataclasses.replace(
+        cfg.shared, my_disc=True, my_rec=True)), True)
+        for name, cfg in train_configs(load_config).items()}
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """The keep masks the eager dropout calls draw, in order."""
+    from scrabblegan_torch.ops import dropout
+
+    drawn, keep_mask = [], dropout.keep_mask
+    dropout.keep_mask = lambda *a: drawn.append(keep_mask(*a)) or drawn[-1]
+    try:
+        yield drawn
+    finally:
+        dropout.keep_mask = keep_mask
+
+
+def replayed_masks() -> dict:
+    """A graph that draws a keep mask from the step key of a device step
+    counter and advances it, as the step body does: two replays draw
+    different masks, each the eager draw of its step."""
+    from scrabblegan_torch.ops.dropout import keep_mask, step_key
+
+    seed = torch.tensor(3, device="cuda")
+    step = torch.tensor(0, device="cuda")
+    shape = (TRAIN_BATCH, 144, 20)
+    out = torch.empty(shape, dtype=torch.bool, device="cuda")
+
+    def body():
+        out.copy_(keep_mask(step_key(seed, step), 7, shape, 0.5))
+        step.add_(1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    step.fill_(5)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(out.clone())
+    eager = [keep_mask(step_key(seed, torch.tensor(n, device="cuda")), 7, shape, 0.5)
+             for n in (5, 6)]
+    if torch.equal(*replays) or not all(map(torch.equal, replays, eager)):
+        raise AssertionError("replays of a dropout draw: equal masks, or not the eager draws")
+    return {"two_replays_differ": True, "replays_equal_eager_draws": True,
+            "kept_share": [r.float().mean().item() for r in replays]}
+
+
+def check_variant_step(attention, fused_block, load_config, synthetic_batch, make_train_step,
+                       make_chunked_train_step, METRIC_NAMES) -> tuple[dict, dict]:
+    """Phase 20 but its CLI runs (`check_variant_cli`); returns the launches
+    of the K = 4 replay runs (counts reset just before and read just after)
+    and {config: (cfg, trees, batch, median ms of a K = 1 call)} for the
+    FLOP shares."""
+    from scrabblegan_torch.train.graphs import WARMUP_STEPS
+
+    card = card_line()
+    # graphs and eager steps from one start are compared bitwise: cuDNN picks
+    # its algorithms by the workspace it can get, so start with the cache empty
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_train_step_card_vs_cpu(load_config, synthetic_batch, make_train_step, METRIC_NAMES,
+                                 {"shared.my_disc": True, "shared.my_rec": True},
+                                 "20 variant step card-vs-cpu")
+    say("20 variant dropout under replay", card=card, **replayed_masks())
+    rng = np.random.default_rng(20)
+    main, runs = {"fwd": 0, "bwd": 0}, {}
+    for name, kcfg in variant_configs(load_config).items():
+        trees = fake_trees(kcfg)
+        length = kcfg.io.seq_len or 5
+        batches = [synthetic_batch(kcfg, TRAIN_BATCH, length, rng)
+                   for _ in range(WARMUP_STEPS + GRAPH_K)]
+        with deterministic_convs():  # cuDNN's LSTM and convs: two eager runs, bitwise?
+            runs_state = [state_of(kcfg, trees, "cuda") for _ in range(2)]
+            with recorded_masks() as drawn:
+                for st in runs_state:
+                    step = make_train_step(kcfg, st.models)
+                    for b in batches[:2]:
+                        step(st, b)
+            eager_twice = all(torch.equal(a, b) for a, b in zip(*map(all_state, runs_state)))
+        # 2 runs x 2 steps x 2 R passes (fake, real: equal shapes here) of one stream
+        calls = len(drawn) // 8
+        step1, step2 = drawn[:2 * calls], drawn[2 * calls:4 * calls]
+        if (calls != 11 or not all(map(torch.equal, step1[:calls], step1[calls:]))
+                or any(map(torch.equal, step1[:calls], step2[:calls]))):
+            raise AssertionError(f"{name}: the eager steps' dropout masks ({len(drawn)} draws)")
+        del runs_state
+        one = graph_vs_eager(kcfg, trees, batches[:WARMUP_STEPS + 1], make_train_step,
+                             make_chunked_train_step, METRIC_NAMES, attention, fused_block,
+                             VARIANT_PER_STEP)
+        del one["state"], one["chunk"]
+        run = graph_vs_eager(kcfg, trees, batches, make_train_step, make_chunked_train_step,
+                             METRIC_NAMES, attention, fused_block, VARIANT_PER_STEP)
+        state, chunk = run.pop("state"), run.pop("chunk")
+        (captured,) = chunk.graphs.captured.values()
+        torch.cuda.synchronize()
+        reset_counts(attention, fused_block)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        metrics = chunk(state, stacked(batches[WARMUP_STEPS:]))
+        torch.cuda.synchronize()
+        replay_peak = torch.cuda.max_memory_allocated() - base
+        counts = counts_now(attention, fused_block)
+        if (counts != tuple(GRAPH_K * n for n in VARIANT_PER_STEP)
+                or captured.counts[:2] != VARIANT_PER_STEP[:2]
+                or not torch.isfinite(metrics).all()):
+            raise AssertionError(f"{name}: {GRAPH_K} replays launched {counts}; a captured "
+                                 f"step counts {captured.counts}")
+        main["fwd"] += counts[0]
+        main["bwd"] += counts[1]
+        times = time_graph_steps(state, chunk, batches[WARMUP_STEPS:])
+        prof = profile_graph_steps(state, chunk, stacked(batches[:1]))
+        eager_peak = peak_step_memory(kcfg, trees, batches[0], make_train_step)
+        runs[name] = (kcfg, trees, batches[0], times["k1"]["median_ms_per_step"])
+        say("20 variant captured step", card=card, config=name, batch=TRAIN_BATCH,
+            variants="shared.my_disc=1, shared.my_rec=1", dropout="on",
+            eager_twice_bitwise=eager_twice, dropout_calls_per_r_pass=calls,
+            k1_vs_eager={k: one[k] for k in ("max_metric_err", "grad_norm_err",
+                                             "updated_param_mismatches", "bitwise")},
+            k4_vs_eager={k: run[k] for k in ("max_metric_err", "grad_norm_err",
+                                             "updated_param_mismatches", "bitwise")},
+            tol_metrics=STEP_TOL_METRICS, tol_grads=STEP_TOL_GRAD,
+            replay_launches_per_step=dict(zip(("fwd", "bwd", "fused"),
+                                              [c / GRAPH_K for c in counts])),
+            capture_s=captured.capture_s, pool_bytes=captured.pool_bytes,
+            replay_peak_bytes_beyond_state=replay_peak,
+            eager_step_peak_bytes_beyond_state=eager_peak, times=times, profile=prof)
+        del state, chunk, captured, run
+        torch.cuda.empty_cache()
+
+    gc.collect()  # the runs' graphs and pools, for the phases after this one
+    torch.cuda.empty_cache()
+    return main, runs
+
+
+def check_variant_cli(attention, fused_block, train_main) -> None:
+    """Phase 20, run last beside the other CLI phases: the train CLI's
+    --steps mode (3 steps, then 2 more that resume) and the Trainer (1 epoch
+    of 6 batches, then 1 more that resumes) with the variants."""
+    card = card_line()
+    sets = ["--set", "shared.my_disc=1", "--set", "shared.my_rec=1"]
+    workdir = OUT_DIR / "variant_steps"
+    shutil.rmtree(workdir, ignore_errors=True)
+    logs = []
+    for steps in (VARIANT_CLI_STEPS, 2):  # then 2 more, resumed from the checkpoint
+        before = attention.bwd_launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_main(["--device", "cuda", "--steps", str(steps), "--batch-size",
+                             str(TRAIN_BATCH), "--length", "5", "--workdir", str(workdir),
+                             *sets])
+        logs.append(out.getvalue())
+        if rc != 0 or attention.bwd_launches != before + steps * VARIANT_PER_STEP[1]:
+            raise AssertionError(f"variant --steps: rc {rc}, "
+                                 f"{attention.bwd_launches - before} backward launches for "
+                                 f"{steps} steps:\n{logs[-1][-2000:]}")
+    if f"resumed from checkpoint at step {VARIANT_CLI_STEPS}" not in logs[1]:
+        raise AssertionError(f"variant --steps resume:\n{logs[1][-2000:]}")
+    trainer_dir = OUT_DIR / "variant_trainer"
+    shutil.rmtree(trainer_dir, ignore_errors=True)
+    trainer_launches = []
+    for epochs in (1, 2):
+        reset_counts(attention, fused_block)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_main(["--device", "cuda", "--synthetic", "--workdir", str(trainer_dir),
+                             "--epochs", str(epochs), "--batches-per-epoch",
+                             str(VARIANT_TRAINER_BATCHES), *sets])
+        torch.cuda.synchronize()
+        trainer_launches.append(counts_now(attention, fused_block))
+        if rc != 0 or trainer_launches[-1][1] != VARIANT_TRAINER_BATCHES * VARIANT_PER_STEP[1]:
+            raise AssertionError(f"variant Trainer: rc {rc}, launches {trainer_launches[-1]}:"
+                                 f"\n{out.getvalue()[-2000:]}")
+        if epochs == 2 and f"resumed from checkpoint at step {VARIANT_TRAINER_BATCHES}" \
+                not in out.getvalue():
+            raise AssertionError(f"variant Trainer resume:\n{out.getvalue()[-2000:]}")
+    say("20 variant cli and trainer", card=card, steps_runs=[VARIANT_CLI_STEPS, 2],
+        steps_resumed_at=VARIANT_CLI_STEPS, trainer_epochs_then_resumed=[1, 1],
+        trainer_batches_per_epoch=VARIANT_TRAINER_BATCHES,
+        trainer_launches_fwd_bwd_fused=trainer_launches)
+
+
+# ---- phase 21: the serving bundle ---------------------------------------------
+
+BUNDLE_BATCH, BUNDLE_LENGTH, BUNDLE_TIME_CALLS = 1024, 5, 10
+
+# Loads and serves a bundle in a fresh process whose import system refuses
+# scrabblegan_torch.models and scrabblegan_torch.ops: argv bundle dir, feeds
+# dir, output .npy; prints one JSON line.
+SERVE_CHILD = r"""
+import importlib.abc, json, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[:2] in (["scrabblegan_torch", "models"], ["scrabblegan_torch", "ops"]):
+            raise ImportError(f"{name}: the bundle must load without model code")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from scrabblegan_torch.kernels import attention, fused_block
+from scrabblegan_torch.train.export import load_exported_generator
+
+bundle, feeds, out = sys.argv[1:4]
+call, meta = load_exported_generator(bundle)
+labels = torch.from_numpy(np.load(feeds + "/labels.npy")).cuda()
+z = torch.from_numpy(np.load(feeds + "/z.npy")).cuda()
+attention.launches = fused_block.launches = 0
+images = call(labels, z)
+torch.cuda.synchronize()
+launches = [attention.launches, fused_block.launches]
+np.save(out, images.cpu().numpy())
+for _ in range(3):
+    call(labels, z)
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+torch.cuda.synchronize()
+start.record()
+for _ in range(int(sys.argv[4])):
+    call(labels, z)
+end.record()
+torch.cuda.synchronize()
+ms = start.elapsed_time(end) / int(sys.argv[4])
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    call(labels, z)
+    torch.cuda.synchronize()
+kernels = sorted({e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and ("attention_fwd" in e.name or "fused_block_fwd" in e.name)})
+loaded = sorted(m for m in sys.modules
+                if m.startswith(("scrabblegan_torch.models", "scrabblegan_torch.ops")))
+print(json.dumps({"meta": meta, "launches_core_fused": launches, "ms_per_batch": ms,
+                  "traced_kernels": kernels, "model_modules_loaded": loaded}))
+"""
+
+
+def check_bundle(g, attention, fused_block, gen) -> dict:
+    """Phase 21: G (bf16, noise z) exported at batch 1024, len 5 under
+    'nhwc1' and 'fused', loaded and served in a fresh process that cannot
+    import the model code; its images against the eager G's (G_TOL_PLAIN,
+    and whether bitwise), its kernel launches and a profiler trace of its
+    kernels, images/s beside the eager G's in this process, export seconds
+    and bytes. Returns {dataflow: launches of the bundle's first call}."""
+    from scrabblegan_torch.train.export import export_generator
+
+    card = card_line()
+    feeds = OUT_DIR / "bundle_feeds"
+    feeds.mkdir(parents=True, exist_ok=True)
+    labels, z = make_inputs(BUNDLE_BATCH, BUNDLE_LENGTH, gen)
+    np.save(feeds / "labels.npy", labels.int().cpu().numpy())
+    np.save(feeds / "z.npy", z.cpu().numpy())
+    launched = {}
+    for flow in ("nhwc1", "fused"):
+        with dataflow(flow), torch.inference_mode():
+            eager = g(labels, z).float().permute(0, 2, 3, 1).cpu()
+            eager_ms = cuda_ms(lambda: g(labels, z), BUNDLE_TIME_CALLS, warmup=2)
+        bundle = OUT_DIR / f"bundle_{flow}"
+        shutil.rmtree(bundle, ignore_errors=True)
+        t0 = time.perf_counter()
+        export_generator(str(bundle), g, BUNDLE_BATCH, BUNDLE_LENGTH, "noise", dataflow=flow)
+        export_s = time.perf_counter() - t0
+        out_npy = OUT_DIR / f"bundle_{flow}_images.npy"
+        proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, str(bundle), str(feeds),
+                               str(out_npy), str(BUNDLE_TIME_CALLS)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(ROOT)})
+        if proc.returncode != 0:
+            raise AssertionError(f"serving the {flow} bundle: rc {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        images = torch.from_numpy(np.load(out_npy))
+        err = check_close(f"bundle vs eager G under {flow}", images, eager, G_TOL_PLAIN)
+        want = [1, 0] if flow != "fused" else [0, 1]
+        kernel = "fused_block_fwd" if flow == "fused" else "attention_fwd"
+        if (child["launches_core_fused"] != want or child["model_modules_loaded"]
+                or not any(kernel in k for k in child["traced_kernels"])
+                or child["meta"]["dataflow"] != flow or child["meta"]["device"] != "cuda"):
+            raise AssertionError(f"the {flow} bundle: {child}")
+        launched[flow] = child["launches_core_fused"]
+        size = sum(f.stat().st_size for f in bundle.iterdir())
+        say("21 serving bundle", card=card, dataflow=flow, batch=BUNDLE_BATCH,
+            length=BUNDLE_LENGTH, dtype="bfloat16", meta=child["meta"],
+            max_abs_err_vs_eager=err, tol=G_TOL_PLAIN, bitwise=bool(torch.equal(images, eager)),
+            launches_core_fused=child["launches_core_fused"], traced_kernels=child["traced_kernels"],
+            model_modules_loaded=child["model_modules_loaded"],
+            bundle_images_per_s=BUNDLE_BATCH / child["ms_per_batch"] * 1e3,
+            eager_images_per_s=BUNDLE_BATCH / eager_ms * 1e3,
+            bundle_ms_per_batch=child["ms_per_batch"], eager_ms_per_batch=eager_ms,
+            export_s=export_s, bundle_bytes=size)
+    return launched
+
+
+# ---- the FLOP count and the shares of the card's peak ----------------------------
+
+PEAK_BF16_FLOPS = 989e12  # the H100 SXM's dense bf16 rate (its data sheet)
+
+
+def flop_shares(g, feeds: dict, g_ms: dict, step_runs: dict, make_train_step) -> None:
+    """`utils/flops.matmul_flops` of G's forward at batch 1024, len 5 and 10,
+    and of one train step of phase 10/18's and phase 20's configurations,
+    each over the card's own time (phase 6's G ms; phase 18's and phase 20's
+    captured step medians), as a share of 989 TFLOP/s."""
+    from scrabblegan_torch.utils.flops import matmul_flops
+
+    card = card_line()
+    rows = []
+    with torch.no_grad():  # not inference_mode: its aten ops bypass the counter
+        for n in LENGTHS:
+            flops = matmul_flops(g, *feeds[n])
+            rows.append({"what": f"G forward, len {n}, batch {BATCH}, bf16", "flops": flops,
+                         "ms": g_ms[n], "images_per_s": BATCH / g_ms[n] * 1e3})
+    for name, (cfg, trees, batch, ms) in step_runs.items():
+        state = state_of(cfg, trees, "cuda")
+        flops = matmul_flops(make_train_step(cfg, state.models), state, batch)
+        rows.append({"what": f"train step, {name}, batch {TRAIN_BATCH}", "flops": flops,
+                     "ms": ms, "steps_per_s": 1e3 / ms})
+        del state
+    for row in rows:
+        row["achieved_tflops"] = row["flops"] / (row["ms"] * 1e-3) / 1e12
+        row["share_of_989_tflops"] = row["flops"] / (row["ms"] * 1e-3) / PEAK_BF16_FLOPS
+    say("flops", card=card, rows=rows,
+        note="FLOPs counted as JAX counts them (utils/flops.py); ms from this run")
+    torch.cuda.empty_cache()
+
+
+VARIANT_PHASE = "--variant-phase"  # the argument under which the script runs phase 20
+
+
+def run_variant_phase() -> dict:
+    """Phase 20 in a child process (this script with VARIANT_PHASE): a process
+    that has run the other phases holds tens of GB of device memory in
+    fragments and CUDA graph pools, and there cuDNN's choice of algorithms,
+    which follows the workspace it can get, made the variant's graphs and
+    eager steps part (PERF.md, §6). Its result lines are printed here too;
+    returns its launches and medians."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), VARIANT_PHASE],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20 exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def variant_phase() -> int:
+    """The child of `run_variant_phase`: phase 20, then one JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = "nhwc1"
+    from scrabblegan_torch.data.synthetic import synthetic_batch
+    from scrabblegan_torch.kernels import attention, fused_block
+    from scrabblegan_torch.models.build import load_config
+    from scrabblegan_torch.train import main as train_main
+    from scrabblegan_torch.train.step import (METRIC_NAMES, make_chunked_train_step,
+                                              make_train_step)
+
+    launches, runs = check_variant_step(attention, fused_block, load_config, synthetic_batch,
+                                        make_train_step, make_chunked_train_step, METRIC_NAMES)
+    check_variant_cli(attention, fused_block, train_main)
+    print(json.dumps({"launches": launches,
+                      "medians": {name: run[3] for name, run in runs.items()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1799,6 +2222,16 @@ def main() -> int:
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
     say("2 build", seconds=build_s, ptxas=ptxas)
+
+    # 20. the DCGAN D and the BiLSTM R: eager, captured, the CLI and the Trainer,
+    # in a process of its own, while this one holds little device memory
+    variant = run_variant_phase()
+    variant_launches = variant["launches"]
+    variant_runs = {}
+    for config, kcfg in variant_configs(load_config).items():
+        variant_runs[config] = (kcfg, fake_trees(kcfg), synthetic_batch(
+            kcfg, TRAIN_BATCH, kcfg.io.seq_len or 5, np.random.default_rng(20)),
+            variant["medians"][config])
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1904,9 +2337,10 @@ def main() -> int:
                 fused_plain_ms=cuda_ms(lambda: fused_block.fused_block_reference(*fops), 5),
                 bound_ms=bound_ms, bound_by=bound_by)
             del ops, fops
+        g_ms = {}
         for n in LENGTHS:
             labels, z = feeds[n]
-            ms = cuda_ms(lambda: g(labels, z), 10, warmup=2)
+            ms = g_ms[n] = cuda_ms(lambda: g(labels, z), 10, warmup=2)
             say("6 time generator", card=card, dtype="bfloat16", length=n, batch=BATCH,
                 core="kernel", ms_per_batch=ms, images_per_s=BATCH / ms * 1e3)
         labels, z = feeds[5]
@@ -1969,6 +2403,20 @@ def main() -> int:
     # 19. the real-data campaign config: raw IAM converted, trained with the watchdog
     iam_launches = check_iam_campaign(attention, fused_block, data_root)
 
+    # 21. the serving bundle, exported and served without the model code
+    bundle_launches = check_bundle(g, attention, fused_block, gen)
+
+    # the FLOP count, over this run's times
+    step_runs = {}
+    for config, cfg in train_configs(load_config).items():
+        kcfg = with_core(cfg, True)
+        step_runs[config] = (kcfg, fake_trees(kcfg), synthetic_batch(
+            kcfg, TRAIN_BATCH, cfg.io.seq_len or 5, np.random.default_rng(0)),
+            graph_medians[config])
+    step_runs.update({f"{config}, my_disc + my_rec": run
+                      for config, run in variant_runs.items()})
+    flop_shares(g, feeds, g_ms, step_runs, make_train_step)
+
     kernel_ms, plain_ms = core_ms[5]  # the same shape: batch 1024
     bwd_row = bwd_rows[("G B3 len 5", torch.float32, TRAIN_BATCH)]
     bwd_b1 = bwd_rows[("D/W B1 len 5", torch.bfloat16, TRAIN_BATCH)]
@@ -1983,6 +2431,8 @@ def main() -> int:
          "evaluate_launches": serve_launches["evaluate"],
          "infer_style_launches": serve_launches["infer"],
          "style_serving_launches": serve_launches["style_nhwc1"],
+         "variant_step_launches": variant_launches["fwd"],
+         "bundle_launches": bundle_launches["nhwc1"][0],
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), core_bound(BATCH, 2560, 640, torch.bfloat16,
@@ -1994,6 +2444,7 @@ def main() -> int:
          "launches": graph_launches["bwd"], "eager_step_launches": train_launches["bwd"],
          "trainer_launches": trainer_launches["bwd"],
          "iam_campaign_launches": iam_launches["bwd"],
+         "variant_step_launches": variant_launches["bwd"],
          "max_abs_err": bwd_err,
          "shape": "G B3 len 5, batch 16, f32", "ms": bwd_row["kernel_ms"],
          **{key: bwd_row[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2007,11 +2458,13 @@ def main() -> int:
          "launches": graph_launches["fused"], "eager_step_launches": fused_train,
          "serving_launches": fused_serving,
          "cli_launches": fused_cli, "style_serving_launches": serve_launches["style_fused"],
+         "bundle_launches": bundle_launches["fused"][1],
          "max_abs_err": max(fused_err.values()),
          "max_abs_err_by_dtype": fused_err, "ms": fused_kernel_ms, "plain_ms": fused_plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), fused_bound(BATCH, 2560, 640, torch.bfloat16))),
          "library_ms": None}]
+    say("total", seconds=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "scrabblegan_tpu", "cv2", "PIL",
@@ -2020,10 +2473,11 @@ def main() -> int:
         raise AssertionError(f"JAX, the JAX package or an image library was imported: "
                              f"{loaded[:5]}")
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(variant_phase() if sys.argv[1:] == [VARIANT_PHASE] else main())

@@ -15,10 +15,16 @@ thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) -> outT (B, Cg, Q), with
 
 unscaled (no 1/sqrt(d)), float32 or bfloat16 in and out, float32 inside.
 
-Dispatch has no fallback: a CPU tensor takes `attention_reference`, which
-autograd differentiates; a CUDA tensor goes through `AttentionCore`, whose
-forward and backward launch the kernels or raise. `launches` and
-`bwd_launches` count kernel launches. The whole-block kernel of the 'fused'
+The forward and the backward are registered ops, `scrabblegan::attention_fwd`
+and `scrabblegan::attention_bwd` (`torch.library.custom_op`): a CUDA
+implementation that launches the kernels, a CPU implementation that is the
+plain version, and a fake that gives the shapes and dtypes, so that
+`torch.export` keeps the kernel in an exported program (train/export.py) and
+a dispatch-level count sees it (utils/flops.py). Registering builds nothing.
+Dispatch has no fallback: a CPU tensor takes the plain version, which
+autograd differentiates; a CUDA tensor goes through the ops, whose CUDA
+implementations launch the kernels or raise. `launches` and `bwd_launches`
+count kernel launches. The whole-block kernel of the 'fused'
 dataflow is in `kernels/fused_block.py`.
 
 The launch paths are capture-safe: they read nothing from the device
@@ -423,36 +429,82 @@ def _launch_backward(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
     return d_thetaT, d_phiT, d_gT
 
 
+@torch.library.custom_op("scrabblegan::attention_fwd", mutates_args=(), device_types="cuda")
+def attention_fwd(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor) -> torch.Tensor:
+    """The forward core as a registered op: on CUDA the kernel, on the CPU
+    the plain version; its fake gives the shape and dtype, so `torch.export`
+    traces it into a program that launches the kernel when it runs on a
+    card."""
+    return _launch_kernel(thetaT, phiT, gT)
+
+
+@attention_fwd.register_kernel("cpu")
+def _attention_fwd_cpu(thetaT, phiT, gT):
+    return attention_reference(thetaT, phiT, gT)
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(thetaT, phiT, gT):
+    return thetaT.new_empty((thetaT.shape[0], gT.shape[1], thetaT.shape[2]))
+
+
+@torch.library.custom_op("scrabblegan::attention_bwd", mutates_args=(), device_types="cuda")
+def attention_bwd(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
+                  doutT: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of the core as a registered op: on CUDA the kernels, on
+    the CPU the plain backward; (dthetaT, dphiT, dgT) in the operands'
+    dtype."""
+    return _launch_backward(thetaT, phiT, gT, doutT)
+
+
+@attention_bwd.register_kernel("cpu")
+def _attention_bwd_cpu(thetaT, phiT, gT, doutT):
+    return attention_backward_reference(thetaT, phiT, gT, doutT)
+
+
+@attention_bwd.register_fake
+def _attention_bwd_fake(thetaT, phiT, gT, doutT):
+    return tuple(t.new_empty(t.shape) for t in (thetaT, phiT, gT))
+
+
 class AttentionCore(torch.autograd.Function):
-    """The kernel path with its gradient: the forward kernel, and the
-    backward kernel on the saved (theta, phi, g), as the JAX custom VJP
-    `_attention_op` saves them in `_attention_fwd`. The launchers are looked
-    up when called, so a test can put the CPU emulations in their place."""
+    """The kernel path with its gradient: the forward op, and the backward op
+    on the saved (theta, phi, g), as the JAX custom VJP `_attention_op` saves
+    them in `_attention_fwd`. The ops are looked up when called, so a test
+    can put the CPU emulations in their place."""
 
     @staticmethod
     def forward(ctx, thetaT, phiT, gT):
         ctx.save_for_backward(thetaT, phiT, gT)
-        return _launch_kernel(thetaT, phiT, gT)
+        return attention_fwd(thetaT, phiT, gT)
 
     @staticmethod
     def backward(ctx, doutT):
-        return _launch_backward(*ctx.saved_tensors, doutT)
+        return attention_bwd(*ctx.saved_tensors, doutT)
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a function of `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def nonlocal_attention_packed(thetaT: torch.Tensor, phiT: torch.Tensor,
                               gT: torch.Tensor) -> torch.Tensor:
     """thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) -> outT (B, Cg, Q).
 
-    On CUDA the kernels through `AttentionCore`, which take Ca=8, Cg=32 and
-    operands whose per-batch (C, N) blocks are dense (a channel slice of a
-    wider projection is fine); on the CPU the plain version. Both carry
-    gradients."""
+    On CUDA the kernels, which take Ca=8, Cg=32 and operands whose per-batch
+    (C, N) blocks are dense (a channel slice of a wider projection is fine):
+    through `AttentionCore` where a gradient is wanted, else the forward op
+    alone. On the CPU the plain version: differentiated by autograd where a
+    gradient is wanted, else through the op's CPU implementation."""
     _check_operands(thetaT, phiT, gT)
+    if thetaT.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no attention core for device {thetaT.device}")
+    if not needs_grad(thetaT, phiT, gT):
+        return attention_fwd(thetaT, phiT, gT)
     if thetaT.device.type == "cuda":
         return AttentionCore.apply(thetaT, phiT, gT)
-    if thetaT.device.type == "cpu":
-        return attention_reference(thetaT, phiT, gT)
-    raise ValueError(f"no attention core for device {thetaT.device}")
+    return attention_reference(thetaT, phiT, gT)
 
 
 def nonlocal_attention(theta: torch.Tensor, phi: torch.Tensor,

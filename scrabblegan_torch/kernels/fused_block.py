@@ -19,8 +19,11 @@ x_flat is (B, N, C), and the tests swap those two axes at the boundary.
 w_theta is (C, Ca) and w_out (Cg, C), JAX's (in, out) matrices; phiT
 (B, Ca, K) and gT (B, Cg, K) are the pooled operands of the attention core.
 
-Dispatch has no fallback: a CPU tensor takes the plain composition; a CUDA
-tensor launches the kernel through `FusedBlock` (fuse=True, JAX's 'fused')
+The forward is a registered op, `scrabblegan::fused_block_fwd`, as the
+attention core's are (kernels/attention.py): a CUDA implementation that
+launches the kernel, a CPU implementation that is the plain composition and
+a fake. Dispatch has no fallback: a CPU tensor takes the plain composition;
+a CUDA tensor launches the kernel through the op (fuse=True, JAX's 'fused')
 or runs the composition on the attention core's kernels (fuse=False, JAX's
 'packed'), or raises. `launches` counts kernel launches; under CUDA graph
 replay `train/graphs.py` keeps it exact, as for `kernels/attention.py`.
@@ -31,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from scrabblegan_torch.kernels.attention import (LOG2E, _DTYPE_CODE, _check_kernel_operands,
-                                                 attention_reference,
+                                                 attention_reference, needs_grad,
                                                  nonlocal_attention_packed,
                                                  online_softmax_emulation)
 from scrabblegan_torch.kernels.build import load_library
@@ -119,20 +122,39 @@ def _launch_fused(x: torch.Tensor, w_theta: torch.Tensor, phiT: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("scrabblegan::fused_block_fwd", mutates_args=(), device_types="cuda")
+def fused_block_fwd(x: torch.Tensor, w_theta: torch.Tensor, phiT: torch.Tensor,
+                    gT: torch.Tensor, w_out_s: torch.Tensor) -> torch.Tensor:
+    """The fused block's forward as a registered op: on CUDA the kernel, on
+    the CPU the plain composition on the plain core; its fake gives x's
+    shape and dtype, so `torch.export` keeps the kernel in the program."""
+    return _launch_fused(x, w_theta, phiT, gT, w_out_s)
+
+
+@fused_block_fwd.register_kernel("cpu")
+def _fused_block_fwd_cpu(x, w_theta, phiT, gT, w_out_s):
+    return fused_block_reference(x, w_theta, phiT, gT, w_out_s)
+
+
+@fused_block_fwd.register_fake
+def _fused_block_fwd_fake(x, w_theta, phiT, gT, w_out_s):
+    return x.new_empty(x.shape)
+
+
 class FusedBlock(torch.autograd.Function):
-    """The kernel path with its gradient: the forward kernel, and as the
+    """The kernel path with its gradient: the forward op, and as the
     backward the gradient of the composition on the saved inputs, as the
     JAX custom VJP takes `jax.vjp(_fused_block_reference)`. On a card the
     composition's core is `AttentionCore`, so the backward recomputes the
     attention with the forward kernel and differentiates it with the backward
     kernel. Only the inputs that need a gradient get one (a frozen network's
-    weights arrive detached). The launcher is looked up when called, so a
-    test can put the CPU emulation in its place."""
+    weights arrive detached). The op is looked up when called, so a test can
+    put the CPU emulation in its place."""
 
     @staticmethod
     def forward(ctx, x, w_theta, phiT, gT, w_out_s):
         ctx.save_for_backward(x, w_theta, phiT, gT, w_out_s)
-        return _launch_fused(x, w_theta, phiT, gT, w_out_s)
+        return fused_block_fwd(x, w_theta, phiT, gT, w_out_s)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -151,15 +173,18 @@ def fused_nonlocal_block(x: torch.Tensor, w_theta: torch.Tensor, phiT: torch.Ten
     """x (B, C, N) + sigma * Proj_out(Attend(x w_theta, phiT, gT)) -> (B, C, N).
 
     sigma folds into w_out in float32 and is cast to the working dtype, as
-    JAX does. On CUDA with fuse=True the kernel (C=64, Ca=8, Cg=32; each
-    operand's per-batch block dense); on CUDA with fuse=False the composition
-    around the attention core's kernels; on the CPU the plain composition,
-    whichever `fuse`. Every path carries gradients in all six arguments."""
+    JAX does. With fuse=True the registered op (on CUDA the kernel: C=64,
+    Ca=8, Cg=32, each operand's per-batch block dense; on the CPU the plain
+    composition), through `FusedBlock` where a gradient is wanted on CUDA;
+    with fuse=False, or on the CPU where a gradient is wanted, the
+    composition around the attention core (its kernels on CUDA). Every path
+    carries gradients in all six arguments."""
     _check_operands(x, w_theta, phiT, gT, w_out)
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused block for device {x.device}")
     w_out_s = (w_out.float() * sigma.float()).to(w_out.dtype)
-    if x.device.type == "cuda" and fuse:
+    if fuse and not needs_grad(x, w_theta, phiT, gT, w_out_s):
+        return fused_block_fwd(x, w_theta, phiT, gT, w_out_s)
+    if fuse and x.device.type == "cuda":
         return FusedBlock.apply(x, w_theta, phiT, gT, w_out_s)
-    if x.device.type in ("cuda", "cpu"):
-        return fused_block_reference(x, w_theta, phiT, gT, w_out_s,
-                                     core=nonlocal_attention_packed)
-    raise ValueError(f"no fused block for device {x.device}")
+    return fused_block_reference(x, w_theta, phiT, gT, w_out_s, core=nonlocal_attention_packed)

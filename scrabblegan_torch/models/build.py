@@ -4,7 +4,9 @@ Port of scrabblegan_tpu/train/state.py `build_models`: G, D, R and W with
 their compute dtypes (G and R in `shared.dtype`; D, W and G's style encoder
 in `shared.trunk_dtype`, which defaults to `shared.dtype`; parameters are
 float32 either way) and `shared.use_pallas_attention` choosing the attention
-core of G's B3 and D's and W's B1 on a card.
+core of G's B3 and D's and W's B1 on a card. `shared.my_disc` builds the
+DCGAN D (its attention on the plain path, as JAX builds it) and
+`shared.my_rec` the BiLSTM R; W stays the BigGAN trunk either way.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ import torch
 
 from scrabblegan_torch.config import Config, load_config
 from scrabblegan_torch import resolve_device
-from scrabblegan_torch.models.discriminator import Discriminator
+from scrabblegan_torch.models.discriminator import DCGANDiscriminator, Discriminator
 from scrabblegan_torch.models.generator import Generator
-from scrabblegan_torch.models.recognizer import Recognizer
+from scrabblegan_torch.models.recognizer import BiLSTMRecognizer, Recognizer
 from scrabblegan_torch.models.style import StylePromoter
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -28,8 +30,8 @@ class ModelBundle:
     """The four networks."""
 
     generator: Generator
-    discriminator: Discriminator
-    recognizer: Recognizer
+    discriminator: Discriminator | DCGANDiscriminator
+    recognizer: Recognizer | BiLSTMRecognizer
     style_promoter: StylePromoter
 
     def items(self) -> list[tuple[str, torch.nn.Module]]:
@@ -81,21 +83,20 @@ def build_models(cfg: Config, device: str | torch.device = "cpu") -> ModelBundle
     """The four networks in train mode, with zero weights: load them with
     `scrabblegan_torch.convert` or fill them with `train.state`'s
     initialisers."""
-    if cfg.shared.my_disc:
-        raise NotImplementedError("shared.my_disc (the DCGAN discriminator) is not ported yet")
-    if cfg.shared.my_rec:
-        raise NotImplementedError("shared.my_rec (the BiLSTM recognizer) is not ported yet")
     dev = resolve_device(device)
     trunk = _dtype(cfg, "trunk_dtype", cfg.shared.trunk_dtype or cfg.shared.dtype)
+    use_sn = cfg.shared.kernel_reg == "spectral_norm"
     c = cfg.io.input_dim[2]
     adversary = dict(img_channels=c, blocks_with_attention=cfg.shared.d_bw_attention,
-                     use_sn=cfg.shared.kernel_reg == "spectral_norm",
-                     use_kernel=cfg.shared.use_pallas_attention, dtype=trunk, device=dev)
+                     use_sn=use_sn, use_kernel=cfg.shared.use_pallas_attention, dtype=trunk,
+                     device=dev)
+    rec_cls = BiLSTMRecognizer if cfg.shared.my_rec else Recognizer
     bundle = ModelBundle(
         generator=_generator(cfg, dev),
-        discriminator=Discriminator(**adversary),
-        recognizer=Recognizer(cfg.io.n_classes + 1, img_channels=c,
-                              dtype=_dtype(cfg, "dtype", cfg.shared.dtype), device=dev),
+        discriminator=(DCGANDiscriminator(c, use_sn=use_sn, dtype=trunk, device=dev)
+                       if cfg.shared.my_disc else Discriminator(**adversary)),
+        recognizer=rec_cls(cfg.io.n_classes + 1, img_channels=c,
+                           dtype=_dtype(cfg, "dtype", cfg.shared.dtype), device=dev),
         style_promoter=StylePromoter(**adversary),
     )
     for _, module in bundle.items():

@@ -7,18 +7,23 @@ global average pool accumulated in float32 (masked by width in 'padded'
 shape mode), and an SN-Dense(1) head whose logits are float32. Fully
 convolutional over width: one parameter set serves every word length.
 
-The DCGAN variant (`shared.my_disc`) is not ported yet.
+The DCGAN variant (`shared.my_disc`, `DCGANDiscriminator`): four stride-2
+3x3 'SAME' SN convs (16/32/64/128), each followed by LeakyReLU 0.3 (keras'
+default slope), a plain-path non-local block after the second (JAX builds
+it without `use_pallas`), a second LeakyReLU after the loop, a float32 GAP
+and the SN-Dense(1) head. It takes `width_mask` and ignores it, as JAX does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from scrabblegan_torch.models.generator import disc_channels
 from scrabblegan_torch.ops.attention import NonLocalBlock
 from scrabblegan_torch.ops.blocks import ResNetBlockDown
-from scrabblegan_torch.ops.layers import SNDense
+from scrabblegan_torch.ops.layers import SNConv, SNDense
 
 
 class DownTrunk(nn.Module):
@@ -71,3 +76,30 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, width_mask: torch.Tensor | None = None) -> torch.Tensor:
         return self.head(self.trunk(x, width_mask))[:, 0].float()
+
+
+class DCGANDiscriminator(nn.Module):
+    """D for `shared.my_disc`: x (B, C, 32, W) -> logits (B,), float32."""
+
+    FEATURES = (16, 32, 64, 128)
+
+    def __init__(self, img_channels: int = 1, use_sn: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(use_sn=use_sn, dtype=dtype, device=device)
+        cin = img_channels
+        for idx, feats in enumerate(self.FEATURES, start=1):
+            self.add_module(f"conv{idx}", SNConv(cin, feats, (3, 3), strides=(2, 2), **kw))
+            cin = feats
+        self.attn_B1 = NonLocalBlock(self.FEATURES[1], use_kernel=False, **kw)
+        self.head = SNDense(cin, 1, **kw)
+
+    def forward(self, x: torch.Tensor, width_mask: torch.Tensor | None = None) -> torch.Tensor:
+        net = x.to(self.dtype)
+        for idx in range(1, len(self.FEATURES) + 1):
+            net = F.leaky_relu(getattr(self, f"conv{idx}")(net), 0.3)
+            if idx == 2:
+                net = self.attn_B1(net)
+        net = F.leaky_relu(net, 0.3).float().mean(dim=(2, 3))
+        return self.head(net)[:, 0].float()

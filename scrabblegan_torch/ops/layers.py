@@ -129,16 +129,21 @@ class _SNLayer(nn.Module):
         w = self.weight.float()
         if not self.use_sn:
             return w.to(self.dtype)
+        u, sigma = self.power_iteration(w)
+        if self.training:
+            propose_stats(self, u=u, sigma=sigma)
+        return (w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))).to(self.dtype)
+
+    def power_iteration(self, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step from the stored u on the float32 weight `w`: (new u,
+        sigma), u constant for autograd, sigma differentiable in `w`."""
         # rows in torch order, a permutation of flax's (-1, out) rows: the
         # power iteration and sigma do not depend on the row order
         mat = w.movedim(self.out_axis, -1).reshape(-1, w.shape[self.out_axis])
         with torch.no_grad():
             v = l2_normalize(self.u.float() @ mat.T)
             u = l2_normalize(v @ mat)
-        sigma = ((v @ mat) @ u.T)[0, 0]
-        if self.training:
-            propose_stats(self, u=u, sigma=sigma)
-        return (w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))).to(self.dtype)
+        return u, ((v @ mat) @ u.T)[0, 0]
 
     def cast_bias(self) -> torch.Tensor | None:
         return None if self.bias is None else self.bias.to(self.dtype)
@@ -159,9 +164,17 @@ class _SNLayer(nn.Module):
         return leaves
 
 
+def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
+    """(low, high) padding of one spatial axis under lax's 'SAME': the total
+    max((ceil(n / s) - 1) * s + k - n, 0), the low side its floor half. On
+    the even sizes a stride-2 3x3 conv meets that is (0, 1), where
+    `F.conv2d(stride=2, padding=1)` pads (1, 1) and samples other pixels."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
 class SNConv(_SNLayer):
-    """Stride-1 conv, 'SAME' as every caller of the JAX SNConv uses it, or
-    'VALID'."""
+    """Conv, 'SAME' (lax's padding, explicit, for any stride) or 'VALID'."""
 
     flax_inner = "Conv_0"
     layout = "conv"
@@ -170,16 +183,23 @@ class SNConv(_SNLayer):
     def __init__(self, in_features: int, features: int,
                  kernel_size: tuple[int, int] = (3, 3), use_bias: bool = True,
                  use_sn: bool = True, dtype: torch.dtype = torch.float32,
-                 device=None, padding: str = "same"):
+                 device=None, padding: str = "same", strides: tuple[int, int] = (1, 1)):
         if padding not in ("same", "valid"):
             raise ValueError(f"padding must be 'same' or 'valid', got {padding!r}")
         super().__init__((features, in_features, *kernel_size), features,
                          use_bias, use_sn, dtype, device)
         self.padding = padding
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.normalized_weight(), self.cast_bias(),
-                        padding=self.padding)
+        x = x.to(self.dtype)
+        if self.padding == "same" and self.strides != (1, 1):
+            (kh, kw), (sh, sw) = self.kernel_size, self.strides
+            x = F.pad(x, (*same_padding(x.shape[3], kw, sw), *same_padding(x.shape[2], kh, sh)))
+            return F.conv2d(x, self.normalized_weight(), self.cast_bias(), stride=self.strides)
+        return F.conv2d(x, self.normalized_weight(), self.cast_bias(), padding=self.padding,
+                        stride=self.strides)
 
 
 class Conv(SNConv):
@@ -273,3 +293,18 @@ class Dense(SNDense):
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__(in_features, features, use_bias=True, use_sn=False, dtype=dtype,
                          device=device)
+
+
+@torch.no_grad()
+def init_power_iteration(module: nn.Module) -> None:
+    """One committed power iteration on every spectrally normalised layer of
+    `module`, as flax's `init` runs one (its `SpectralNorm` has no
+    initialising guard and `create_train_state` inits with train=True): u
+    becomes the normalised first iterate from the drawn u and sigma its
+    estimate."""
+    with record_stats() as record:
+        for layer in module.modules():
+            if isinstance(layer, _SNLayer) and layer.use_sn:
+                u, sigma = layer.power_iteration(layer.weight.float())
+                propose_stats(layer, u=u, sigma=sigma)
+    commit_stats(record)

@@ -5,7 +5,7 @@ machine, so the format is the port's own:
 - a checkpoint is <ckpt_dir>/<step>/state.pt, a `torch.save` of plain
   tensors, ints and lists: the four networks' parameters and statistics
   (their state_dicts), the four optimizer states (their counts as 0-d
-  tensors), the step and G's EMA. It is
+  tensors), the step, G's EMA and the dropout stream's seed. It is
   written into a temporary directory, flushed to disk and moved into place
   with `os.replace`, so a reader sees a whole checkpoint or none; the newest
   MAX_TO_KEEP are kept, as Orbax's `max_to_keep=3`;
@@ -57,6 +57,7 @@ def save_state(ckpt_dir: str, state: TrainState, step: int) -> str:
         "opt_states": {net: {"count": s.count, "nu": s.nu, "mu": s.mu}
                        for net, s in state.opt_states.items()},
         "g_ema": state.g_ema,
+        "dropout_seed": int(state.dropout_seed),
     }
     tmp = tempfile.mkdtemp(prefix=f".{step}.", dir=ckpt_dir)
     with open(os.path.join(tmp, STATE_FILE), "wb") as f:
@@ -115,6 +116,7 @@ def restore_state(ckpt_dir: str, template: TrainState) -> tuple[TrainState | Non
     _restore_list(payload["g_ema"], template.g_ema, "G EMA")
     template.step = int(payload["step"])
     template.step_t.fill_(template.step)
+    template.dropout_seed.fill_(int(payload.get("dropout_seed", 0)))  # 0 before it was saved
     return template, step
 
 

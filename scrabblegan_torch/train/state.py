@@ -13,8 +13,14 @@ leaf with flax's initialisers, in flax's layout, and loads the tree through
 - glorot-uniform for the filter bank;
 - flax's defaults for the recognizer's plain convs and dense layer
   (lecun-normal kernels, zero biases);
-- spectral norm's u ~ N(0, 1) and sigma 1; BN scale 1, bias 0, mean 0, var 1;
-  the attention sigma 0.
+- flax's defaults for the BiLSTM recognizer's convs, dense layer and LSTM
+  cells (lecun-normal kernels and input kernels, orthogonal recurrent
+  kernels, zero biases);
+- spectral norm's u ~ N(0, 1) and sigma 1, then one committed power
+  iteration on every SN layer, as flax's `init` runs one
+  (`ops/layers.py` `init_power_iteration`): u is the normalised first
+  iterate and sigma its estimate; BN scale 1, bias 0, mean 0, var 1; the
+  attention sigma 0.
 
 The random numbers come from a `torch.Generator` seeded with `seed`, so a
 seed gives other weights than `jax.random` gives the JAX package.
@@ -32,6 +38,7 @@ from scrabblegan_torch.config import Config
 from scrabblegan_torch import resolve_device
 from scrabblegan_torch.convert import flax_leaves, flax_shapes, load_flax, unflatten
 from scrabblegan_torch.models.build import ModelBundle, build_models
+from scrabblegan_torch.ops.layers import init_power_iteration
 from scrabblegan_torch.train.optim import OptState, make_optimizers
 
 NETWORKS = "gdrw"  # the ModelBundle's order: generator, discriminator, recognizer, style promoter
@@ -46,11 +53,16 @@ class TrainState:
     # the step counter on the device, 0-d int64: a step call sets it from
     # `step` and the step body advances it (the disc_iters cadence reads it)
     step_t: torch.Tensor | None = None
+    # the dropout stream's seed on the device, 0-d int64: a step's masks are a
+    # function of it and `step_t` (ops/dropout.py `step_key`)
+    dropout_seed: torch.Tensor | None = None
 
     def __post_init__(self):
+        device = next(self.models.generator.parameters()).device
         if self.step_t is None:
-            device = next(self.models.generator.parameters()).device
             self.step_t = torch.full((), self.step, dtype=torch.int64, device=device)
+        if self.dropout_seed is None:
+            self.dropout_seed = torch.zeros((), dtype=torch.int64, device=device)
 
     def params(self, net: str) -> list[torch.Tensor]:
         return list(self.modules()[net].parameters())
@@ -73,11 +85,11 @@ def new_train_state(cfg: Config, models: ModelBundle) -> TrainState:
 
 def _orthogonal(shape: tuple[int, ...], gen: torch.Generator) -> torch.Tensor:
     """jax.nn.initializers.orthogonal(column_axis=-1): orthonormal columns
-    (or rows, if fewer) of the (-1, out) matrix."""
+    (or rows, if fewer) of the (-1, out) matrix, from the QR of a float32
+    normal draw, as jax draws and factors it in the parameters' float32."""
     n_cols = shape[-1]
     n_rows = math.prod(shape) // n_cols
-    a = torch.randn(max(n_rows, n_cols), min(n_rows, n_cols), generator=gen,
-                    dtype=torch.float64)
+    a = torch.randn(max(n_rows, n_cols), min(n_rows, n_cols), generator=gen)
     q, r = torch.linalg.qr(a)
     q = q * torch.sign(torch.diagonal(r))[None, :]
     if n_rows < n_cols:
@@ -130,8 +142,12 @@ def init_variables(module: torch.nn.Module, seed: int) -> dict:
 def create_train_state(cfg: Config, seed: int = 0,
                        device: str | torch.device = "cpu") -> TrainState:
     """A fresh train state for `cfg`, every network initialised as flax
-    initialises it (see the module docstring), one seed per network."""
+    initialises it (see the module docstring), one seed per network; the
+    dropout stream seeded with `seed`."""
     models = build_models(cfg, resolve_device(device))
     for idx, (_, module) in enumerate(models.items()):
         load_flax(module, init_variables(module, seed * len(NETWORKS) + idx))
-    return new_train_state(cfg, models)
+        init_power_iteration(module)
+    state = new_train_state(cfg, models)
+    state.dropout_seed.fill_(seed)
+    return state

@@ -22,8 +22,10 @@ normalises by its own batch statistics and discards them.
 XLA removes the W pass on IAM images in 'adversarial' mode, where it feeds
 nothing; here it is skipped, and likewise the W passes the other two style
 modes do not read. Noise z, for z_source='noise', is an argument of the
-step; the default style path draws no random numbers (the conv R has no
-dropout).
+step. The BiLSTM R (`shared.my_rec`) has dropout: both of its passes read
+one stream, keyed by the state's dropout seed and the device step counter
+(ops/dropout.py), as both JAX passes read the step's one `rng_drop`; the
+conv R draws no random numbers.
 
 `shared.remat` runs G's own pass under the non-reentrant
 `torch.utils.checkpoint`: its activations are recomputed in the backward,
@@ -44,6 +46,7 @@ the CPU. Not ported, raising NotImplementedError: the parallel modes.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Mapping
 
 import torch
@@ -54,6 +57,7 @@ from scrabblegan_torch.config import Config
 from scrabblegan_torch.models.build import ModelBundle
 from scrabblegan_torch.ops.balance import balanced_fanout, gradient_balance
 from scrabblegan_torch.ops.ctc import ctc_loss
+from scrabblegan_torch.ops.dropout import dropout_stream, step_key
 from scrabblegan_torch.ops.layers import commit_stats, record_stats
 from scrabblegan_torch.ops.losses import DISC_LOSS_REGISTRY, GEN_LOSS_REGISTRY
 from scrabblegan_torch.train.optim import apply_updates, make_optimizers, update_ema
@@ -119,6 +123,7 @@ def make_step_body(cfg: Config, models: ModelBundle):
         raise ValueError(f"unknown balance_mode {o.balance_mode!r}")
     use_r = cfg.shared.use_recognizer
     use_w = cfg.shared.use_style_promoter
+    my_rec = cfg.shared.my_rec
     grad_norm_balance = use_r and o.apply_gradient_balance and o.balance_mode == "grad_norm"
     padded = cfg.parallel.shape_mode == "padded"
     style_z = cfg.shared.z_source == "style"
@@ -135,7 +140,8 @@ def make_step_body(cfg: Config, models: ModelBundle):
             return v.detach().float().mean()
         return torch.full((), v, dtype=torch.float32, device=device)  # no host copy
 
-    def forward_losses(inputs: Mapping[str, torch.Tensor], z: torch.Tensor | None):
+    def forward_losses(inputs: Mapping[str, torch.Tensor], z: torch.Tensor | None,
+                       drop_key: torch.Tensor | None):
         real_imgs = normalize_images(inputs["real_imgs"], device)
         style_imgs = normalize_images(inputs["style_imgs"], device)
         real_labels = inputs["real_labels"].long()
@@ -197,9 +203,12 @@ def make_step_body(cfg: Config, models: ModelBundle):
         r_stats = {}
         r_fake = r_real = zeros
         if use_r:
-            r_fake = ctc_loss(_frozen(R)(gen_for_ctc), fake_labels, 4 * fake_lengths - 1,
-                              fake_lengths)
-            with record_stats() as r_stats:
+            # the BiLSTM R's passes each restart the step's dropout stream
+            stream = (lambda: dropout_stream(drop_key)) if my_rec else contextlib.nullcontext
+            with stream():
+                r_logits_fake = _frozen(R)(gen_for_ctc)
+            r_fake = ctc_loss(r_logits_fake, fake_labels, 4 * fake_lengths - 1, fake_lengths)
+            with record_stats() as r_stats, stream():
                 r_logits_real = R(real_imgs)
             r_real = ctc_loss(r_logits_real, real_labels, 4 * real_lengths - 1, real_lengths)
 
@@ -243,7 +252,8 @@ def make_step_body(cfg: Config, models: ModelBundle):
 
     def body(state: TrainState, inputs: Mapping[str, torch.Tensor],
              z: torch.Tensor | None = None) -> torch.Tensor:
-        total, metrics, records = forward_losses(inputs, z)
+        drop_key = step_key(state.dropout_seed, state.step_t) if my_rec else None
+        total, metrics, records = forward_losses(inputs, z, drop_key)
         total.backward()
         for record in records:
             commit_stats(record)

@@ -161,7 +161,7 @@ def test_bfloat16_needs_two_parts_of_the_probabilities(monkeypatch):
 
 @pytest.fixture
 def emulated_launchers(monkeypatch):
-    """The CPU emulations in place of the CUDA launchers; returns the calls."""
+    """The CPU emulations in place of the CUDA kernels' ops; returns the calls."""
     calls = []
 
     def fwd(*ops):
@@ -172,8 +172,8 @@ def emulated_launchers(monkeypatch):
         calls.append("bwd")
         return attention.attention_bwd_emulation(*ops)
 
-    monkeypatch.setattr(attention, "_launch_kernel", fwd)
-    monkeypatch.setattr(attention, "_launch_backward", bwd)
+    monkeypatch.setattr(attention, "attention_fwd", fwd)
+    monkeypatch.setattr(attention, "attention_bwd", bwd)
     return calls
 
 

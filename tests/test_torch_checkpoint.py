@@ -4,7 +4,10 @@
   second run that resumes and takes 1 more step, bitwise equal to 3 steps
   taken at once (every tensor of the two step-3 checkpoints and of the two
   exports); at full width, batch 2, len 2, G EMA on with 2 standing-stat
-  batches;
+  batches, with the DCGAN D and the BiLSTM R (`shared.my_disc`,
+  `shared.my_rec`), whose dropout is on: the resumed step 3 draws the masks
+  the uninterrupted one draws (the state's dropout seed and step counter
+  come back from the checkpoint);
 - `python -m scrabblegan_torch.infer --model-dir --z-source noise` serves
   the newest export: the images of G under its EMA weights with standing
   statistics computed here by committing train-mode forwards into a copy of
@@ -27,6 +30,7 @@ from scrabblegan_torch import convert, infer
 from scrabblegan_torch.config import load_config
 from scrabblegan_torch.data.synthetic import synthetic_feed
 from scrabblegan_torch.models.build import ModelBundle, noise_config
+from scrabblegan_torch.ops import dropout
 from scrabblegan_torch.ops.layers import commit_stats, record_stats
 from scrabblegan_torch.train import checkpoint, main
 from scrabblegan_torch.train.optim import OptState
@@ -37,7 +41,8 @@ from scrabblegan_torch.train.step import normalize_images
 # torch's OpenMP pool in each would oversubscribe the cores many times over.
 torch.set_num_threads(1)
 
-SETS = {"optimizer.g_ema_decay": "0.999", "optimizer.ema_standing_stat_batches": "2"}
+SETS = {"optimizer.g_ema_decay": "0.999", "optimizer.ema_standing_stat_batches": "2",
+        "shared.my_disc": "1", "shared.my_rec": "1"}
 ARGS = ["--device", "cpu", "--config", "none", "--batch-size", "2", "--length", "2"]
 ARGS += [a for k, v in SETS.items() for a in ("--set", f"{k}={v}")]
 
@@ -171,6 +176,22 @@ def test_save_state_keeps_the_newest_three_and_checks_the_layout(tmp_path):
         checkpoint.restore_state(ckpt, tiny_state(0, ema=False))
     with pytest.raises(RuntimeError):
         checkpoint.restore_state(ckpt, tiny_state(0, width=4))
+
+
+def test_resume_continues_the_dropout_stream(tmp_path):
+    """The BiLSTM R's dropout masks are a function of the state's dropout
+    seed and its step counter (ops/dropout.py): both come back from a
+    checkpoint, so the resumed run's next step draws the masks the
+    uninterrupted run's would."""
+    ckpt = str(tmp_path / "ckpt")
+    state = tiny_state(4)
+    state.dropout_seed.fill_(11)
+    checkpoint.save_state(ckpt, state, 4)
+    restored, _ = checkpoint.restore_state(ckpt, tiny_state(0))
+    assert int(restored.dropout_seed) == 11 and int(restored.step_t) == 4
+    masks = [dropout.keep_mask(dropout.step_key(s.dropout_seed, s.step_t), 0, (64, 32), 0.5)
+             for s in (state, restored)]
+    assert torch.equal(*masks)
 
 
 def test_latest_export_is_the_newest_complete_one(tmp_path):

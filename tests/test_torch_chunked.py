@@ -2,10 +2,16 @@
 CPU, at the networks' full widths, batch 2, words of 2 characters (its
 bitwise agreement with eager steps is test_torch_chunked_modes.py):
 
-- against JAX's `make_chunked_train_step` (lax.scan over the stacked batch,
-  the cadence by `lax.cond`) from the same weights, K = 3, `disc_iters` 2
-  (G updated once, at the second step; D, R and W three times): the one
-  test here that compiles a JAX step. The learning rates are 2e-6: lean
+- against JAX's `make_chunked_train_step` from the same weights, K = 3,
+  `disc_iters` 2 (G updated once, at the second step; D, R and W three
+  times): the one test here that compiles a JAX step. JAX's chunk is a
+  `lax.scan` of its step over the stacked batch and the K rngs, the cadence
+  by `lax.cond` on the step counter; tests/test_chunked.py holds it to K
+  sequential calls of the jitted step on the same batches and rngs (within
+  XLA's reassociation, ~1e-4 relative). The JAX side here makes those K
+  calls: XLA's CPU backend runs the scanned body ~30x slower than the
+  standalone step (200-345 s against ~3 s a step, measured on this test's
+  shapes), so one jit and K calls keep the file inside the suite's time. The learning rates are 2e-6: lean
   Adam's first update is +-lr on every element whatever the gradient's
   size, so gradient entries at rounding level take opposite signs in the
   two implementations; at the default 2e-4 those flips part the two
@@ -36,12 +42,13 @@ bitwise agreement with eager steps is test_torch_chunked_modes.py):
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import test_torch_step_parity as parity
 from scrabblegan_torch.convert import flatten, state_from_flax, to_flax
 from scrabblegan_torch.train.step import METRIC_NAMES, make_chunked_train_step
-from scrabblegan_tpu.train.step import make_chunked_train_step as jax_make_chunked_train_step
+from scrabblegan_tpu.train.step import make_train_step as jax_make_train_step
 
 torch.set_num_threads(1)
 
@@ -88,30 +95,52 @@ def change_error(after: dict, want: dict, before: dict) -> float:
     return float(np.linalg.norm(got - ref) / np.linalg.norm(ref - start))
 
 
-def test_chunk_matches_jax_chunked_step():
+@pytest.fixture(scope="module")
+def chunk_pair():
+    """K steps of JAX's step and one K-step call of the port's chunk from the
+    same start: (port metrics (16, K), JAX metrics, the StepPair)."""
     cfg = parity.config(padded=True, **{"parallel.steps_per_call": K, "optimizer.disc_iters": 2,
                                         "optimizer.g_ema_decay": 0.5,
                                         **{f"optimizer.{n}_lr": 2e-6 for n in "gdrw"}})
     models, jstate, trees = parity.jax_start_state(cfg)
     batches = [parity.make_batch(cfg, 2, seed=s) for s in range(K)]
-    chunk = jax.jit(jax_make_chunked_train_step(cfg, models))
-    jax_after, jax_metrics = chunk(jstate, stacked(batches),
-                                   jax.random.split(jax.random.PRNGKey(1), K))
+    step = jax.jit(jax_make_train_step(cfg, models))  # the body of JAX's chunk
+    jax_after, per_step = jstate, []
+    for batch, rng in zip(batches, jax.random.split(jax.random.PRNGKey(1), K)):
+        jax_after, metrics = step(jax_after, batch, rng)
+        per_step.append(metrics)
+    jax_metrics = {name: np.stack([np.asarray(m[name]) for m in per_step])
+                   for name in METRIC_NAMES}
     state = state_from_flax(cfg, {n: t[0] for n, t in trees.items()},
                             {n: t[1] for n, t in trees.items()})
     before = {n: to_flax(m) for n, m in state.modules().items()}
     got = make_chunked_train_step(cfg, state.models)(state, stacked(batches)).numpy()
+    return got, jax_metrics, parity.StepPair(cfg, jstate, jax_after, {}, state, {}, before)
+
+
+def test_chunk_matches_jax_chunked_step(chunk_pair):
+    got, jax_metrics, _ = chunk_pair
     for j, name in enumerate(METRIC_NAMES):
         want = np.asarray(jax_metrics[name])
         assert np.isfinite(got[j]).all(), name
         np.testing.assert_allclose(got[j], want, rtol=5e-3, atol=1e-4, err_msg=name)
 
+
+def test_chunk_counts_match_jax(chunk_pair):
+    state, jax_after = chunk_pair[2].port_state, chunk_pair[2].jax_after
     assert state.step == int(jax_after.step) == int(state.step_t) == K
     for net in "gdrw":
         count = int(getattr(jax_after, f"{net}_opt")[0].count)
         assert int(state.opt_states[net].count) == count == (1 if net == "g" else K), net
-    pair = parity.StepPair(cfg, jstate, jax_after, {}, state, {}, before)
-    assert parity.check_gradients_of(pair, "g", 1e-1) > 1e-3
+
+
+def test_chunk_g_update_matches_jax(chunk_pair):
+    assert parity.check_gradients_of(chunk_pair[2], "g", 1e-1) > 1e-3
+
+
+def test_chunk_parameter_and_ema_changes_match_jax(chunk_pair):
+    pair = chunk_pair[2]
+    state, jax_after, before = pair.port_state, pair.jax_after, pair.port_before
     for net, module in state.modules().items():
         err = change_error(flatten(to_flax(module)["params"]),
                            flatten(getattr(jax_after, f"{net}_params")),
@@ -120,7 +149,10 @@ def test_chunk_matches_jax_chunked_step():
     err = change_error(parity._port_tree(state.models.generator, state.g_ema),
                        flatten(jax_after.g_ema), flatten(before["g"]["params"]))
     assert err < 0.1, f"EMA change: error {err} of JAX's"
-    assert parity.check_stats(pair, rtol=1e-4, atol=1e-4) > 100
+
+
+def test_chunk_statistics_match_jax(chunk_pair):
+    assert parity.check_stats(chunk_pair[2], rtol=1e-4, atol=1e-4) > 100
 
 
 def test_chunk_metrics_do_not_alias():

@@ -228,7 +228,7 @@ def emulated_launcher(monkeypatch):
         calls.append(tuple(t.dtype for t in ops))
         return fused_block.fused_block_emulation(*ops)
 
-    monkeypatch.setattr(fused_block, "_launch_fused", launch)
+    monkeypatch.setattr(fused_block, "fused_block_fwd", launch)
     return calls
 
 

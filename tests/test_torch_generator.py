@@ -130,9 +130,11 @@ def test_conversion_rejects_bad_trees_and_skips_the_style_encoder():
 def test_config_choices():
     style = build_generator(cfg_for(**{"shared.z_source": "style"}), "meta")
     assert not style.style_encoder.attn.use_kernel  # JAX builds it without use_pallas
-    for unported in ("shared.my_rec", "shared.my_disc"):
-        with pytest.raises(NotImplementedError):
-            build_models(cfg_for(**{unported: True}), "meta")
+    variants = build_models(cfg_for(**{"shared.my_rec": True, "shared.my_disc": True}), "meta")
+    assert type(variants.discriminator).__name__ == "DCGANDiscriminator"
+    assert type(variants.recognizer).__name__ == "BiLSTMRecognizer"
+    assert type(variants.style_promoter).__name__ == "StylePromoter"  # BigGAN W, as in JAX
+    assert variants.style_promoter.trunk.attn_B1.use_kernel
     with pytest.raises(ValueError):
         build_generator(cfg_for(**{"shared.dtype": "float16"}))
     # 'subpixel' is a TPU lowering of the same transposed conv

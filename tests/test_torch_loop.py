@@ -10,7 +10,9 @@ standing-statistics batches, `io.ckpt_every` 2:
   and appended rows, grids with their label files, the GIF, checkpoints at
   the cadence and the last epoch, G and R exports numbered by epoch,
   quality_<epoch>.json and the latest_good link where the gate said 'ok',
-  config.json), the resumed state's step;
+  config.json), the resumed state's step; in padded mode then the export
+  CLI (`python -m scrabblegan_torch.export`) on the run's model dir, whose
+  bundle serves the eager G's images of the export it chose, bitwise;
 - host syncs: while the batch loop runs, `.cpu()`, `.item()`, `.tolist()`
   and `float()` on a tensor are counted: one call a flush block of
   `flush_every` steps (here 2), not 16 a step; the `--steps` mode of the
@@ -30,11 +32,14 @@ import numpy as np
 import pytest
 import torch
 
-from scrabblegan_torch.config import load_config
-from scrabblegan_torch.convert import fake_flax_variables, state_from_flax
+from scrabblegan_torch import infer
+from scrabblegan_torch.config import discover_config, load_config
+from scrabblegan_torch.convert import fake_flax_variables, generator_from_flax, state_from_flax
 from scrabblegan_torch.data.images import read_grayscale
 from scrabblegan_torch.data.synthetic import make_synthetic_dataset
-from scrabblegan_torch.train import cli, loop
+from scrabblegan_torch.export import main as export_main
+from scrabblegan_torch.train import checkpoint, cli, loop
+from scrabblegan_torch.train.export import load_exported_generator
 from scrabblegan_torch.train import main as train_main
 from scrabblegan_torch.train.step import METRIC_NAMES
 
@@ -101,10 +106,33 @@ def run(cfg, workdir, data, epochs, resume):
     return trainer, state, out.getvalue()
 
 
-def train_and_resume(mode, data, workdir):
+def export_bundle(workdir):
+    """`python -m scrabblegan_torch.export` on the run's model dir (batch 2,
+    length 2, on the CPU) into <workdir>/bundle, and beside it the eager G's
+    images of the export it chose, on the inputs the test serves."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert export_main(["--model-dir", str(workdir / "model"), "--out",
+                            str(workdir / "bundle"), "--batch-size", "2", "--length", "2",
+                            "--device", "cpu"]) == 0
+    chosen = infer.pick_export(str(workdir / "model"), "auto")
+    cfg = load_config(discover_config(chosen))
+    g = generator_from_flax(checkpoint.load_export(chosen), cfg, "cpu")
+    rng = np.random.default_rng(3)
+    labels = rng.integers(0, 52, (2, 2)).astype(np.int32)
+    style = rng.uniform(-1, 1, (2, 32, 160, 1)).astype(np.float32)
+    with torch.no_grad():
+        want = g(torch.from_numpy(labels).long(),
+                 style_imgs=torch.from_numpy(style).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.savez(workdir / "bundle_inputs.npz", labels=labels, style=style, want=want.numpy())
+    return out.getvalue()
+
+
+def train_and_resume(mode, data, workdir, export=False):
     """2 epochs of 2 batches, then 1 more epoch that resumes; the host
     fetches of the first run's batch loops are counted (state set-up and
-    the epoch artifacts are not the loop's)."""
+    the epoch artifacts are not the loop's). With `export`, the export CLI
+    then writes a serving bundle of the run's model dir (`export_bundle`)."""
     mp = pytest.MonkeyPatch()
     counter = SyncCounter(mp)
     mp.setattr(loop, "create_train_state", fast_state)
@@ -123,6 +151,8 @@ def train_and_resume(mode, data, workdir):
         for export in workdir.rglob("variables.npz"):
             export.unlink()
         second = run(cfg, workdir, data, epochs=3, resume=True)
+        if export:
+            export_bundle(workdir)
     finally:
         mp.undo()
         for heavy in (*workdir.rglob("state.pt"), *workdir.rglob("variables.npz")):
@@ -132,7 +162,7 @@ def train_and_resume(mode, data, workdir):
 
 @pytest.fixture(scope="module")
 def runs(data, tmp_path_factory):
-    return train_and_resume("padded", data, tmp_path_factory.mktemp("padded"))
+    return train_and_resume("padded", data, tmp_path_factory.mktemp("padded"), export=True)
 
 
 def test_artifact_set_and_epoch_numbered_exports(runs):
@@ -176,6 +206,21 @@ def test_resume_starts_at_the_checkpoint_s_epoch(runs):
     assert "resumed from checkpoint at step 4" in second[2]
     assert ">3, 2/2" in second[2] and ">2," not in second[2] and ">1," not in second[2]
     assert len(second[0].epoch_secs) == 1 and len(second[0].artifact_secs) == 1
+
+
+def test_export_cli_bundles_the_trainer_s_model_dir(runs):
+    """The bundle the export CLI wrote from the Trainer's model dir (its
+    config found beside the export, the style z source it was trained
+    with) serves the eager G's images of that export, bitwise."""
+    _, cfg, workdir, *_ = runs
+    call, meta = load_exported_generator(str(workdir / "bundle"))
+    assert meta == {"batch_size": 2, "length": 2, "z_source": cfg.shared.z_source,
+                    "latent_dim": cfg.shared.latent_dim, "img_hw": list(cfg.io.input_dim[:2]),
+                    "device": "cpu", "dataflow": "nhwc1", "dtype": cfg.shared.dtype}
+    inputs = np.load(workdir / "bundle_inputs.npz")
+    assert cfg.shared.z_source == "style"
+    np.testing.assert_array_equal(call(inputs["labels"], inputs["style"]).numpy(),
+                                  inputs["want"])
 
 
 def test_one_host_fetch_a_flush_block(runs):

@@ -68,9 +68,11 @@ def test_stats_commit_rule():
 
 
 def test_disc_iters_cadence_and_ema():
-    """disc_iters=2: G and its EMA move on the second step only; D every step."""
+    """disc_iters=2: G and its EMA move on the second step only; D every step
+    (R and W, whose cadence is D's, are off)."""
     cfg = parity.config(padded=False, **{"optimizer.disc_iters": 2,
-                                         "shared.use_recognizer": False})
+                                         "shared.use_recognizer": False,
+                                         "shared.use_style_promoter": False})
     trees = {n: parity.fake_tree(cfg, n) for n in "gdrw"}
     state = state_from_flax(cfg, {n: t["params"] for n, t in trees.items()},
                             {n: t.get("batch_stats", {}) for n, t in trees.items()})
