@@ -2134,6 +2134,202 @@ def flop_shares(g, feeds: dict, g_ms: dict, step_runs: dict, make_train_step) ->
     torch.cuda.empty_cache()
 
 
+# ---- phase 22: the parallel modes and the bench twin --------------------------
+
+PARALLEL_PHASE = "--parallel-phase"  # the argument under which the script runs phase 22
+PARALLEL_STEPS = 3
+PARALLEL_STEPS_BF16 = 2  # 22b's bf16 legs, cut for the script's time limit
+NCCL_WORLD1_STEPS = 11  # 22a: bitwise over all; the ms a step the mean of the 10 after the first
+PARALLEL_MODES = {"dp": (2, {}), "fsdp": (2, {"parallel.fsdp": True}),
+                  "tp": (2, {"parallel.model_parallel": 2}),
+                  "fsdp+tp": (4, {"parallel.fsdp": True, "parallel.model_parallel": 2})}
+PARALLEL_OVERRIDES = {"shared.trunk_dtype": "float32"}
+BENCH_ARGS = ["--iters", "10", "5", "--train-steps", "10", "--windows", "2", "--e2e-batches",
+              "20", "--e2e-epochs", "2"]
+BENCH_KEYS = ("mfu_inference_len5", "train_steps_per_sec_batch16", "mfu_train_len5",
+              "train_steps_per_sec_e2e", "e2e_over_raw", "images_per_sec_len10",
+              "mfu_inference_len10", "train_steps_per_sec_len10", "mfu_train_len10", "card")
+
+
+def parallel_nccl_world1(load_config, synthetic_batch, make_train_step) -> None:
+    """Phase 22 (a): NCCL at world size 1, the recommended config at batch 16:
+    NCCL_WORLD1_STEPS eager steps under the DP and the FSDP wrappers, each
+    bitwise equal to as many plain eager steps from the same start (metrics
+    and every tensor of the state), under cuDNN's deterministic algorithms;
+    the ms a step of each, the mean of the steps after the first."""
+    from scrabblegan_torch.parallel import prepare_state
+    from scrabblegan_torch.parallel.mesh import init_distributed, mesh_for
+
+    cfg = load_config(str(ROOT / "configs" / "recommended.json"))
+    trees = fake_trees(cfg)
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, 5, np.random.default_rng(220 + i))
+               for i in range(NCCL_WORLD1_STEPS)]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    rendezvous = OUT_DIR / "nccl_world1"
+    rendezvous.unlink(missing_ok=True)
+    device = init_distributed("nccl", torch.device("cuda"), f"file://{rendezvous}", 0, 1)
+    try:
+        runs = {}
+        with deterministic_convs():
+            for mode in ("plain", "dp", "fsdp"):
+                mcfg = cfg if mode != "fsdp" else dataclasses.replace(
+                    cfg, parallel=dataclasses.replace(cfg.parallel, fsdp=True))
+                state = state_of(mcfg, trees, device)
+                mesh = None if mode == "plain" else mesh_for(mcfg, device)
+                if mesh is not None:
+                    prepare_state(mcfg, mesh, state)
+                step = make_train_step(mcfg, state.models, mesh=mesh)
+                rows, times = [], []
+                for b in batches:
+                    t0 = time.perf_counter()
+                    rows.append(torch.stack(list(step(state, b).values())))
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms = float(np.mean(times[1:]))  # the first step pays the build and cuDNN's choices
+                runs[mode] = (torch.stack(rows).cpu(), [t.detach().clone() for t in all_state(state)],
+                              ms, mesh)
+                del state, step
+        plain_metrics, plain_state, plain_ms, _ = runs["plain"]
+        for mode in ("dp", "fsdp"):
+            metrics, tensors, ms, mesh = runs[mode]
+            same = torch.equal(metrics, plain_metrics) and len(tensors) == len(plain_state) and all(
+                torch.equal(a, b) for a, b in zip(tensors, plain_state))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(tensors, plain_state))
+            say("22a parallel nccl world 1", mode=mode, mesh=mesh.shape, backend=mesh.backend,
+                steps=NCCL_WORLD1_STEPS, batch=TRAIN_BATCH, bitwise=same,
+                metric_max_abs_err=float((metrics - plain_metrics).abs().max()),
+                state_max_abs_err=err, ms_per_step_after_the_first=ms,
+                plain_ms_per_step_after_the_first=plain_ms)
+            if not same:
+                raise AssertionError(f"{mode} at world size 1 is not bitwise the plain step")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parallel_gloo_modes(card: str) -> dict:
+    """Phase 22 (b): DP (2 ranks), FSDP (2), TP on (1, 2) and FSDP x TP on (2,
+    2), gloo on the one card, at global batch 16, from one initial state,
+    each step against rank 0's one-process step from the same state
+    (parallel/selftest.py `shadow_steps`), in two dtypes:
+    - float32 trunks (PARALLEL_OVERRIDES), PARALLEL_STEPS steps a mode: the
+      selftest's bounds, the metrics within rtol 2e-3 / atol 2e-4, the
+      parameters, statistics, EMA and Adam's moments (relative to their
+      largest) within 5e-3;
+    - configs/recommended.json as users train it, bf16 trunks,
+      PARALLEL_STEPS_BF16 steps a mode, against a rounding witness: rank 0
+      also takes the one-process step with its layers split as the mode's
+      ranks split them (`split_parts`, no parallel code); the same bounds,
+      the metrics' rtol and the moments' bound raised to twice the
+      witness's difference where it is larger (`shadow_errors`).
+    All printed with each step's ms (the first pays a fresh process's cuDNN
+    and kernel loading) and the attention launches a step on rank 0;
+    returns {mode: launches}."""
+    from scrabblegan_torch.parallel import selftest as st
+
+    work = OUT_DIR / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    config = str(ROOT / "configs" / "recommended.json")
+    init = str(work / "init")  # one state for both dtypes: the trunk dtype casts at use
+    st.write_init(st.job_config(TRAIN_BATCH, PARALLEL_OVERRIDES, config), init, device="cuda")
+    jobs = {}
+    for mode, (ranks, overrides) in PARALLEL_MODES.items():
+        base = {"batch": TRAIN_BATCH, "config": config, "length": 5, "init": init,
+                "seed": 220, "steps": PARALLEL_STEPS, "shadow": True}
+        jobs[mode] = {**base, "overrides": {**PARALLEL_OVERRIDES, **overrides}}
+        model = overrides.get("parallel.model_parallel", 1)
+        jobs[f"{mode} bf16"] = {**base, "overrides": overrides, "steps": PARALLEL_STEPS_BF16,
+                                "witness": [ranks // model, model]}
+    two = [m for m, (ranks, _) in PARALLEL_MODES.items() if ranks == 2]
+    two = two + [f"{m} bf16" for m in two]
+    four = ["fsdp+tp", "fsdp+tp bf16"]
+    t0 = time.perf_counter()
+    reports = dict(zip(two, st.spawn(2, [jobs[m] for m in two], str(work), "gloo", "cuda")))
+    spawn2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reports.update(zip(four, st.spawn(4, [jobs[m] for m in four], str(work), "gloo", "cuda")))
+    spawn4_s = time.perf_counter() - t0
+    launches = {}
+    for mode, got in reports.items():
+        ok, worst = st.shadow_errors(got)
+        launches[mode] = got["launches_per_step"]
+        witness = {}
+        if "witness_diffs" in got:
+            _, metric = st.metric_errors(got["witness_metrics"], got["shadow_metrics"])
+            _, beside = st.metric_errors(got["metrics"], got["witness_metrics"])
+            witness = {"witness_parts": jobs[mode]["witness"], "witness_metric_max_rel_diff":
+                       metric, "metric_max_rel_diff_to_witness": beside,
+                       "witness_step_diffs": got["witness_diffs"]}
+        say("22b parallel gloo on the card", card=card, mode=mode, mesh=got["mesh"],
+            ranks=PARALLEL_MODES[mode.split()[0]][0], steps=jobs[mode]["steps"],
+            global_batch=TRAIN_BATCH, within_bounds=ok, metric_max_rel_diff=worst["metric"],
+            metric_rtol=worst["metric_rtol"], state_max_diff=worst["state"],
+            moments_max_rel_diff=worst["moments"], moments_bound=worst["moment_bound"], step_diffs=got["step_diffs"], **witness,
+            ms_per_step=got["ms_per_step"], attention_launches_per_step_per_rank=launches[mode],
+            spawn_s=spawn4_s if mode in four else spawn2_s)
+        if not ok:
+            raise AssertionError(f"{mode}: outside the bounds: {worst}, diffs {got['step_diffs']}")
+        if launches[mode] != {"fwd": FWD_PER_STEP, "bwd": BWD_PER_STEP}:
+            raise AssertionError(f"{mode}: {launches[mode]} attention launches a step")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def bench_child(card: str) -> dict:
+    """Phase 22 (c): `python -m scrabblegan_torch.bench` (cut in depth:
+    BENCH_ARGS) in a child process; its last line carries bench.py's keys."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "scrabblegan_torch.bench", *BENCH_ARGS],
+                          cwd=ROOT, capture_output=True, text=True, timeout=420)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    result = lines[-1]
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline", "extra")
+               if k not in result] + [k for k in BENCH_KEYS if k not in result["extra"]]
+    if len(lines) != 5 or missing or result["extra"]["card"] != card:
+        raise AssertionError(f"bench: {len(lines)} lines, missing {missing}")
+    print(json.dumps(result), flush=True)
+    say("22c bench", args=BENCH_ARGS, seconds=time.perf_counter() - t0,
+        images_per_s_len5=result["value"], **{k: result["extra"][k] for k in BENCH_KEYS})
+    return result
+
+
+def run_parallel_phase() -> dict:
+    """Phase 22 in a child process (this script with PARALLEL_PHASE), as phase
+    20 is: its ranks are processes of their own; its lines are printed here
+    too; returns its launches a step a rank."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), PARALLEL_PHASE],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22 exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def parallel_phase() -> int:
+    """The child of `run_parallel_phase`: phase 22 (a), (b), (c), then one
+    JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = "nhwc1"
+    from scrabblegan_torch.data.synthetic import synthetic_batch
+    from scrabblegan_torch.models.build import load_config
+    from scrabblegan_torch.train.step import make_train_step
+
+    card = card_line()
+    parallel_nccl_world1(load_config, synthetic_batch, make_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = parallel_gloo_modes(card)
+    bench_child(card)
+    print(json.dumps({"launches": launches}))
+    return 0
+
+
 VARIANT_PHASE = "--variant-phase"  # the argument under which the script runs phase 20
 
 
@@ -2232,6 +2428,10 @@ def main() -> int:
         variant_runs[config] = (kcfg, fake_trees(kcfg), synthetic_batch(
             kcfg, TRAIN_BATCH, kcfg.io.seq_len or 5, np.random.default_rng(20)),
             variant["medians"][config])
+
+    # 22. the parallel modes (NCCL at world size 1; gloo on 2 and 4 ranks of this
+    # card) and the bench twin, in a process of its own beside its ranks
+    parallel = run_parallel_phase()
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2433,6 +2633,7 @@ def main() -> int:
          "style_serving_launches": serve_launches["style_nhwc1"],
          "variant_step_launches": variant_launches["fwd"],
          "bundle_launches": bundle_launches["nhwc1"][0],
+         "parallel_step_launches_per_rank": {m: v["fwd"] for m, v in parallel["launches"].items()},
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), core_bound(BATCH, 2560, 640, torch.bfloat16,
@@ -2445,6 +2646,7 @@ def main() -> int:
          "trainer_launches": trainer_launches["bwd"],
          "iam_campaign_launches": iam_launches["bwd"],
          "variant_step_launches": variant_launches["bwd"],
+         "parallel_step_launches_per_rank": {m: v["bwd"] for m, v in parallel["launches"].items()},
          "max_abs_err": bwd_err,
          "shape": "G B3 len 5, batch 16, f32", "ms": bwd_row["kernel_ms"],
          **{key: bwd_row[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2480,4 +2682,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(variant_phase() if sys.argv[1:] == [VARIANT_PHASE] else main())
+    sys.exit(variant_phase() if sys.argv[1:] == [VARIANT_PHASE]
+             else parallel_phase() if sys.argv[1:] == [PARALLEL_PHASE] else main())

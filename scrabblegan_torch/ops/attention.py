@@ -67,6 +67,8 @@ class NonLocalBlock(nn.Module):
         self.phi = SNConv(features, c_attn, (1, 1), **kw)
         self.g = SNConv(features, c_g, (1, 1), **kw)
         self.out = SNConv(c_g, features, (1, 1), **kw)
+        for conv in (self.theta, self.phi, self.g, self.out):
+            conv.tp_whole = True  # whole tensors for the kernels (parallel/tp.py)
         self.sigma = nn.Parameter(torch.zeros((), device=device))
 
     def flax_leaves(self) -> list[FlaxLeaf]:

@@ -1,7 +1,9 @@
 """ScrabbleGAN gradient balancing.
 
 Port of scrabblegan_tpu/ops/balance.py. Every std here is the population std
-(jnp.std; torch's default is the unbiased one).
+(jnp.std; torch's default is the unbiased one), over the global batch in a
+parallel step (parallel/mesh.py `global_pstd`), the cotangents' stds of
+the fanout's backward included.
 
 - `gradient_balance`: the reference's loss rescaling; the CTC-on-fake loss
   is scaled by std(g_loss) / std(r_fake) over the batch.
@@ -15,9 +17,11 @@ from __future__ import annotations
 
 import torch
 
+from scrabblegan_torch.parallel.mesh import current, global_pstd, use_step
+
 
 def _pstd(x: torch.Tensor) -> torch.Tensor:
-    return torch.std(x, correction=0)
+    return global_pstd(x)  # torch.std(x, correction=0) outside a parallel step
 
 
 def gradient_balance(r_fake: torch.Tensor, g_loss: torch.Tensor, alpha: float = 1.0):
@@ -39,12 +43,14 @@ class _BalancedFanout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, imgs, alpha):
         ctx.alpha = alpha
+        ctx.step = current()  # a card's backward runs on another thread
         return imgs.clone(), imgs.clone()
 
     @staticmethod
     def backward(ctx, cot_adv, cot_ctc):
         # a branch that feeds nothing arrives as zeros, as in JAX
-        return balance_image_gradients(cot_adv, cot_ctc, ctx.alpha)[0], None
+        with use_step(ctx.step):
+            return balance_image_gradients(cot_adv, cot_ctc, ctx.alpha)[0], None
 
 
 def balanced_fanout(imgs: torch.Tensor, alpha: float = 1.0):

@@ -10,7 +10,9 @@ momentum 0.99, eps 1e-5).
   with flax's fast variance max(0, E[x^2] - E[x]^2), and proposes the running
   update ra = 0.99 ra + 0.01 stat with the biased variance to the open stat
   record (ops/layers.py `record_stats`); nothing is written during the
-  forward. `F.batch_norm(training=True)` is not used: it updates the running
+  forward. In a parallel step the moments are the global batch's
+  (parallel/mesh.py `global_moments`), so every rank commits the same
+  statistics. `F.batch_norm(training=True)` is not used: it updates the running
   variance with the unbiased variance, in place, on every call.
 """
 
@@ -22,6 +24,7 @@ from torch import nn
 
 from scrabblegan_torch.ops.layers import (FlaxLeaf, SNConv, SNConvTranspose, SNDense,
                                           propose_stats)
+from scrabblegan_torch.parallel.mesh import global_moments
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99
@@ -42,8 +45,8 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor | None = None,
     x's dtype, batch mean, biased batch variance), the statistics in float32
     and differentiable, as flax's `_compute_stats` and `_normalize` do."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+    mean, mean_sq = global_moments(xf, (0, 2, 3))  # over the global batch in a parallel step
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
     mul = torch.rsqrt(var + BN_EPS)
     if scale is not None:
         mul = mul * scale

@@ -54,9 +54,11 @@ def step_key(seed: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def dropout_stream(key: torch.Tensor) -> Iterator[None]:
-    """Number the dropout calls inside the block 0, 1, 2, ... under `key`."""
-    token = _STREAM.set([key, 0])
+def dropout_stream(key: torch.Tensor, shard: int = 0) -> Iterator[None]:
+    """Number the dropout calls inside the block 0, 1, 2, ... under `key`.
+    `shard` is the data rank of a parallel step: its masks are its slice of
+    the global batch's."""
+    token = _STREAM.set([key, 0, shard])
     try:
         yield
     finally:
@@ -64,15 +66,17 @@ def dropout_stream(key: torch.Tensor) -> Iterator[None]:
 
 
 def keep_mask(key: torch.Tensor, call: int, shape: tuple[int, ...],
-              keep_prob: float) -> torch.Tensor:
-    """The boolean keep mask of call number `call` of the stream `key`."""
+              keep_prob: float, shard: int = 0) -> torch.Tensor:
+    """The boolean keep mask of call number `call` of the stream `key`; of a
+    batch-major tensor that is data rank `shard`'s slice of a global batch,
+    the global mask's rows (flat indices offset by shard * its size)."""
     n = 1
     for d in shape:
         n *= d
-    if n >= 2 ** 32:
-        raise ValueError(f"dropout over {n} elements: the hash indexes 2^32")
+    if (shard + 1) * n >= 2 ** 32:
+        raise ValueError(f"dropout over {(shard + 1) * n} elements: the hash indexes 2^32")
     k = _mix((key + call * _ODD) & _M32)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    idx = torch.arange(shard * n, (shard + 1) * n, dtype=torch.int64, device=key.device)
     bits = _mix(_mix((idx * _ODD + k) & _M32) ^ k)
     return ((bits >> 8) < int(keep_prob * 2 ** 24)).reshape(shape)
 
@@ -87,8 +91,8 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
     if stream is None:
         raise RuntimeError("dropout in train mode needs a stream: call the network inside "
                            "`dropout_stream(key)`")
-    key, call = stream
+    key, call, shard = stream
     stream[1] += 1
     keep_prob = 1.0 - rate
-    mask = keep_mask(key, call, tuple(x.shape), keep_prob)
+    mask = keep_mask(key, call, tuple(x.shape), keep_prob, shard)
     return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

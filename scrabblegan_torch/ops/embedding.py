@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from scrabblegan_torch.ops.layers import FlaxLeaf
+from scrabblegan_torch.parallel.tp import split_call
 
 
 class FilterBank(nn.Module):
@@ -36,5 +37,8 @@ class FilterBank(nn.Module):
         z0_rows = z0.to(self.dtype)[:, None, :].expand(b, length, k).reshape(b * length, k)
         # a[r, v*k + k'] = onehot[r, v] * z0[row's batch, k']: exact 0/1 scaling
         a = (onehot[:, :, None] * z0_rows[:, None, :]).reshape(b * length, v * k)
-        out = a @ self.bank.to(self.dtype).reshape(v * k, d)
+        # under tensor parallelism this rank's slice of the 8192 axis, gathered
+        # back before the seed reshape (parallel/tp.py)
+        out = split_call(self, lambda a, bank, _: a @ bank.reshape(v * k, -1), a,
+                         self.bank.to(self.dtype), None, 2, -1)
         return out.reshape(b, length, d)

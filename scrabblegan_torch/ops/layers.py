@@ -25,6 +25,11 @@ the step, and the step commits only the passes whose statistics JAX keeps, as
 `apply(..., mutable=['batch_stats'])` returns them (scrabblegan_tpu/train/
 step.py). A pass outside any record discards its statistics.
 
+Under tensor parallelism (parallel/tp.py) a layer whose kernel the layout
+splits over the model axis computes this rank's output channels of the
+whole normalised kernel and gathers them (`split_call`); otherwise, and in
+one process, the call is the plain one.
+
 The torch layouts are OIHW for a conv, (I, O, kh, kw) for a transposed conv
 and (out, in) for a dense kernel. The transposed conv's kernel is stored
 flipped in both spatial axes (see `SNConvTranspose`). Each layer names the
@@ -41,6 +46,8 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from scrabblegan_torch.parallel.tp import split_call
 
 SN_EPS = 1e-12
 
@@ -106,6 +113,7 @@ class _SNLayer(nn.Module):
     layout = ""
     out_axis = 0  # the torch weight's output-channel axis
     kernel_init = "orthogonal"  # scrabblegan_tpu.ops.layers.orthogonal_init
+    tp_whole = False  # True: never split over the model axis (parallel/tp.py)
 
     def __init__(self, weight_shape: Sequence[int], features: int, use_bias: bool,
                  use_sn: bool, dtype: torch.dtype, device):
@@ -197,9 +205,11 @@ class SNConv(_SNLayer):
         if self.padding == "same" and self.strides != (1, 1):
             (kh, kw), (sh, sw) = self.kernel_size, self.strides
             x = F.pad(x, (*same_padding(x.shape[3], kw, sw), *same_padding(x.shape[2], kh, sh)))
-            return F.conv2d(x, self.normalized_weight(), self.cast_bias(), stride=self.strides)
-        return F.conv2d(x, self.normalized_weight(), self.cast_bias(), padding=self.padding,
-                        stride=self.strides)
+            conv = lambda x, w, b: F.conv2d(x, w, b, stride=self.strides)  # noqa: E731
+        else:
+            conv = lambda x, w, b: F.conv2d(x, w, b, padding=self.padding,  # noqa: E731
+                                            stride=self.strides)
+        return split_call(self, conv, x, self.normalized_weight(), self.cast_bias(), 0, 1)
 
 
 class Conv(SNConv):
@@ -260,11 +270,14 @@ class SNConvTranspose(_SNLayer):
         self.output_padding = tuple(o for _, o in pads)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.to(self.dtype), self.normalized_weight(), self.cast_bias(),
-                               stride=self.strides, padding=self.padding,
-                               output_padding=self.output_padding)
         sh, sw = self.strides
-        return y[..., : x.shape[2] * sh, : x.shape[3] * sw]
+
+        def conv(x, w, b):
+            y = F.conv_transpose2d(x, w, b, stride=self.strides, padding=self.padding,
+                                   output_padding=self.output_padding)
+            return y[..., : x.shape[2] * sh, : x.shape[3] * sw]
+        return split_call(self, conv, x.to(self.dtype), self.normalized_weight(),
+                          self.cast_bias(), 1, 1)
 
 
 class SNDense(_SNLayer):
@@ -279,7 +292,8 @@ class SNDense(_SNLayer):
                          dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.normalized_weight(), self.cast_bias())
+        return split_call(self, F.linear, x.to(self.dtype), self.normalized_weight(),
+                          self.cast_bias(), 0, -1)
 
 
 class Dense(SNDense):

@@ -49,7 +49,25 @@ def _publish(tmp: str, final: str) -> None:
 
 
 def save_state(ckpt_dir: str, state: TrainState, step: int) -> str:
-    """Write the full train state as checkpoint `step`; returns its directory."""
+    """Write the full train state as checkpoint `step`; returns its directory.
+
+    In a parallel run (`state.layout`) every rank calls it: the state is
+    gathered whole (parallel/fsdp.py `unsharded`), rank 0 writes it in
+    today's format, so that any layout resumes it, and the others wait."""
+    if state.layout is None:
+        return write_state(ckpt_dir, state, step)
+    from scrabblegan_torch.parallel.fsdp import unsharded
+    from scrabblegan_torch.parallel.mesh import barrier, is_rank0
+
+    with unsharded(state):
+        if is_rank0():
+            write_state(ckpt_dir, state, step)
+    barrier()
+    return os.path.join(ckpt_dir, str(step))
+
+
+def write_state(ckpt_dir: str, state: TrainState, step: int) -> str:
+    """`save_state`'s write by this process alone, of a whole state."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "step": state.step,
@@ -96,11 +114,15 @@ def _restore_list(saved: list[torch.Tensor] | None, into: list[torch.Tensor] | N
 
 def restore_state(ckpt_dir: str, template: TrainState) -> tuple[TrainState | None, int]:
     """Load the newest checkpoint into `template`; returns (template, step),
-    or (None, 0) when there is no checkpoint. Every tensor of the state,
+    or (None, 0) when there is no checkpoint. A parallel run restores into
+    a whole template and lays it out after (`parallel.prepare_state`), so a
+    checkpoint of any layout resumes at any other. Every tensor of the state,
     the optimizers' counts included, is written in place, so that CUDA
     graphs captured on the template stay valid. Raises when the
     checkpoint's layout differs from the template's, as a restore into
     another config's state would."""
+    if template.layout is not None:
+        raise ValueError("restore into a whole state, then lay it out (parallel.prepare_state)")
     step = latest_step(ckpt_dir)
     if step is None:
         return None, 0

@@ -47,6 +47,17 @@ writes G's live weights as the .npz that `infer --weights` serves. The
 `--init` .npz holds the four networks' flax trees under the keys 'g', 'd',
 'r' and 'w', each {"params", "batch_stats"}, joined with '.' as
 `convert.save_flax_npz` writes them.
+
+Parallel runs (both modes): under `torchrun --nproc-per-node N` every rank
+joins the process group (`--dist-backend nccl` on cards, one a rank, the
+default with --device cuda; `gloo` on the CPU, its default there, or for
+several ranks on one card) and trains on the same global batches, keeping
+its data-axis rows: data parallelism over every rank by default
+(`parallel.num_devices` -1), FSDP with `--set parallel.fsdp=true`, tensor
+parallelism with `--set parallel.model_parallel=M`, and both composed
+(scrabblegan_torch/parallel/). The steps run eagerly; rank 0 prints and
+writes, the checkpoints holding the whole state, so that any layout or one
+process resumes them. Without torchrun the run is one process, as before.
 """
 
 from __future__ import annotations
@@ -64,6 +75,10 @@ from scrabblegan_torch import resolve_device
 from scrabblegan_torch.config import load_config, save_config
 from scrabblegan_torch.convert import load_flax_npz, save_flax_npz, state_from_flax, to_flax
 from scrabblegan_torch.data.synthetic import synthetic_batch, synthetic_feed, synthetic_noise
+from scrabblegan_torch.parallel import prepare_state
+from scrabblegan_torch.parallel.fsdp import unsharded
+from scrabblegan_torch.parallel.mesh import (barrier, broadcast_object, init_distributed,
+                                             is_rank0, mesh_for)
 from scrabblegan_torch.train import checkpoint
 from scrabblegan_torch.train.standing import export_models
 from scrabblegan_torch.train.state import create_train_state
@@ -109,7 +124,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-resume", action="store_true",
                    help="start from the initial state even if --workdir holds a checkpoint")
     p.add_argument("--export-g", default=None, help="write G's live weights to this .npz")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="the process group's backend under torchrun (default nccl with "
+                        "--device cuda, gloo with --device cpu); gloo for several ranks "
+                        "on one card. The mode: parallel.fsdp, parallel.model_parallel")
     args = p.parse_args(argv)
+    if args.dist_backend and "WORLD_SIZE" not in os.environ:
+        p.error("--dist-backend belongs to a run under torchrun")
     if args.steps is None:
         given = [f"--{k.replace('_', '-')}" for k in STEPS_ONLY if getattr(args, k) is not None]
         if given:
@@ -128,8 +149,11 @@ def train_epochs(args, cfg, device) -> int:
     if args.synthetic:
         from scrabblegan_torch.data.synthetic import make_synthetic_dataset
 
-        read_dir, words_file, style_dir = make_synthetic_dataset(
-            os.path.join(workdir, "synthetic_data"))
+        read_dir = words_file = style_dir = None
+        if is_rank0():
+            read_dir, words_file, style_dir = make_synthetic_dataset(
+                os.path.join(workdir, "synthetic_data"))
+        read_dir, words_file, style_dir = broadcast_object((read_dir, words_file, style_dir))
     else:
         read_dir = args.read_dir or cfg.io.read_dir
         style_dir, words_file = args.style_dir, args.words_file
@@ -140,9 +164,11 @@ def train_epochs(args, cfg, device) -> int:
                 print(f"no data set at {read_dir} and no converter for io.dataset "
                       f"{cfg.io.dataset!r}; pass --synthetic", file=sys.stderr)
                 return 2
-            print("converting dataset to GAN-Reading format...", flush=True)
-            DATASET_HANDLERS[cfg.io.dataset](cfg.io.raw_dir, read_dir, cfg.io.input_dim,
-                                             cfg.io.bucket_size)
+            if is_rank0():
+                print("converting dataset to GAN-Reading format...", flush=True)
+                DATASET_HANDLERS[cfg.io.dataset](cfg.io.raw_dir, read_dir, cfg.io.input_dim,
+                                                 cfg.io.bucket_size)
+        barrier()
     trainer.load_data(read_dir=read_dir, style_dir=style_dir, words_file=words_file)
     trainer.train(epochs=args.epochs, batches_per_epoch=args.batches_per_epoch,
                   resume=not args.no_resume, profile_steps=args.profile)
@@ -160,8 +186,20 @@ def main(argv=None) -> int:
     config = None if args.config in (None, "none") else args.config
     cfg = load_config(config, dict(kv.split("=", 1) for kv in args.set))
     device = resolve_device(args.device)
+    if "WORLD_SIZE" not in os.environ:
+        return run(args, cfg, device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    device = init_distributed(backend, device)
+    try:
+        return run(args, cfg, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run(args, cfg, device) -> int:
     if args.steps is None:
         return train_epochs(args, cfg, device)
+    say = print if is_rank0() else (lambda *a, **k: None)
     length = args.length or 5
     if args.init:
         tree = load_flax_npz(args.init)
@@ -172,17 +210,23 @@ def main(argv=None) -> int:
     if args.workdir:
         ckpt_dir = os.path.join(args.workdir, cfg.io.checkpoint_dir)
         model_dir = os.path.join(args.workdir, cfg.io.model_dir)
-        for d in (args.workdir, ckpt_dir, model_dir):
-            os.makedirs(d, exist_ok=True)
-            save_config(cfg, os.path.join(d, "config.json"))
+        if is_rank0():
+            for d in (args.workdir, ckpt_dir, model_dir):
+                os.makedirs(d, exist_ok=True)
+                save_config(cfg, os.path.join(d, "config.json"))
+        barrier()
         if not args.no_resume and checkpoint.restore_state(ckpt_dir, state)[0] is not None:
-            print(f"resumed from checkpoint at step {state.step}", flush=True)
-    chunk = make_chunked_train_step(cfg, state.models)
+            say(f"resumed from checkpoint at step {state.step}", flush=True)
+    mesh = mesh_for(cfg, device)
+    if mesh is not None:
+        prepare_state(cfg, mesh, state)
+    chunk = make_chunked_train_step(cfg, state.models, mesh=mesh)
     k = max(1, int(cfg.parallel.steps_per_call))
     batch_size = args.batch_size or cfg.shared.batch_size
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"{args.steps} steps on {device} ({where}), batch {batch_size}, "
-          f"{cfg.parallel.shape_mode}, {k} a call", flush=True)
+    ranks = "" if mesh is None else f", eager over {mesh.shape} ranks ({mesh.backend})"
+    say(f"{args.steps} steps on {device} ({where}), batch {batch_size}, "
+        f"{cfg.parallel.shape_mode}, {k} a call{ranks}", flush=True)
     t0, timed, done = time.perf_counter(), 0, 0
     while done < args.steps:
         n = min(k, args.steps - done)
@@ -196,7 +240,7 @@ def main(argv=None) -> int:
         marks = graph_marks(chunk)
         rows = chunk(state, batches, z).T.tolist()  # one fetch a call
         for i, values in enumerate(rows):
-            print(f"step {state.step - n + i + 1}: " + " ".join(
+            say(f"step {state.step - n + i + 1}: " + " ".join(
                 f"{name}={v:.4f}" for name, v in zip(METRIC_NAMES, values)), flush=True)
         done += n
         if done == n or graph_marks(chunk) != marks:
@@ -206,18 +250,20 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timed:
-        print(f"{timed / (time.perf_counter() - t0):.3f} steps/s over the {timed} steps after "
-              f"the first call, the warm-up steps and the capture", flush=True)
-    if args.workdir:
-        if cfg.io.ckpt_every > 0:
-            print(f"saved checkpoint {checkpoint.save_state(ckpt_dir, state, state.step)}",
-                  flush=True)
-        feed = synthetic_feed(cfg, batch_size, length, seed=args.seed + 1)
-        for name, path in export_models(cfg, state, model_dir, feed).items():
-            print(f"exported {name} to {path}", flush=True)
-    if args.export_g:
-        save_flax_npz(args.export_g, to_flax(state.models.generator))
-        print(f"wrote G to {args.export_g}", flush=True)
+        say(f"{timed / (time.perf_counter() - t0):.3f} steps/s over the {timed} steps after "
+            f"the first call, the warm-up steps and the capture", flush=True)
+    if args.workdir and cfg.io.ckpt_every > 0:
+        say(f"saved checkpoint {checkpoint.save_state(ckpt_dir, state, state.step)}",
+            flush=True)
+    with unsharded(state):  # a parallel run: whole on every rank, rank 0 writes
+        if args.workdir and is_rank0():
+            feed = synthetic_feed(cfg, batch_size, length, seed=args.seed + 1)
+            for name, path in export_models(cfg, state, model_dir, feed).items():
+                print(f"exported {name} to {path}", flush=True)
+        if args.export_g and is_rank0():
+            save_flax_npz(args.export_g, to_flax(state.models.generator))
+            print(f"wrote G to {args.export_g}", flush=True)
+    barrier()
     return 0
 
 

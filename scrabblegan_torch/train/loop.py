@@ -34,6 +34,15 @@ Port of scrabblegan_tpu/train/loop.py (`Trainer`). The parts:
   (`train/checkpoint.py`), G (EMA weights and standing statistics) and R
   exported as export number <epoch>, and the export gate (`eval/gate.py`).
 
+In a parallel run (a process group up: `torchrun`, `--dist-backend`) every
+rank runs the Trainer on the same global batch stream, the step keeping its
+rows (train/step.py, parallel/): the state is laid out for the config's
+mode after it is built or restored, the chunk runs eagerly, and rank 0
+writes the summaries, the log, the grids, the checkpoints (the whole state,
+gathered), the exports and the gate's files while the others wait. The
+standing statistics draw from the batch stream, so every rank computes
+them on the gathered state and the streams stay in step.
+
 Known divergences from the JAX Trainer: with z_source='noise' the step's z
 is drawn from a `torch.Generator` seeded with `cfg.seed + 1` where JAX
 splits a `jax.random` key, so noise-mode runs see other z; the grid carries
@@ -58,6 +67,9 @@ from scrabblegan_torch.config import Config, save_config
 from scrabblegan_torch.convert import to_flax
 from scrabblegan_torch.data.loaders import sample_fake_labels
 from scrabblegan_torch.models.build import build_models
+from scrabblegan_torch.parallel import prepare_state
+from scrabblegan_torch.parallel.fsdp import unsharded
+from scrabblegan_torch.parallel.mesh import barrier, is_rank0, mesh_for
 from scrabblegan_torch.train import checkpoint
 from scrabblegan_torch.train.batches import Batches
 from scrabblegan_torch.train.metrics import SummaryWriter
@@ -132,6 +144,19 @@ class _Prefetcher:
             self._thread.join(timeout=0.25)
 
 
+class _NoWriter:
+    """The summaries of a rank other than 0: nothing is written."""
+
+    def write_batch(self, *args) -> None:
+        pass
+
+    def end_epoch(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     """`device` is where the networks live and the steps run: 'cuda' (the
     default) or 'cpu'."""
@@ -139,17 +164,21 @@ class Trainer:
     def __init__(self, cfg: Config, workdir: Optional[str] = None, verbose: bool = True,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
-        self.verbose = verbose
         self.device = resolve_device(device)
+        self.mesh = mesh_for(cfg, self.device)  # None in one process
+        self.rank0 = is_rank0()
+        self.verbose = verbose and self.rank0
         base = workdir or cfg.io.base_path
         self.workdir = base
         self.gen_path = os.path.join(base, cfg.io.gen_imgs_dir)
         self.ckpt_path = os.path.join(base, cfg.io.checkpoint_dir)
         self.model_path = os.path.join(base, cfg.io.model_dir)
-        for p in (self.gen_path, self.ckpt_path, self.model_path):
-            os.makedirs(p, exist_ok=True)
-        for p in (base, self.ckpt_path, self.model_path):
-            save_config(cfg, os.path.join(p, "config.json"))
+        if self.rank0:
+            for p in (self.gen_path, self.ckpt_path, self.model_path):
+                os.makedirs(p, exist_ok=True)
+            for p in (base, self.ckpt_path, self.model_path):
+                save_config(cfg, os.path.join(p, "config.json"))
+        barrier()
         self.batches = Batches(cfg)
         self.diverged_at = None  # (epoch_idx, batch_idx) of the first non-finite metrics
         self.epoch_secs: list[float] = []  # batch-loop wall time per epoch, artifacts excluded
@@ -170,16 +199,18 @@ class Trainer:
         networks built without drawing their initial weights)."""
         if resume and checkpoint.latest_step(self.ckpt_path) is not None:
             template = new_train_state(self.cfg, build_models(self.cfg, self.device))
-            restored, step = checkpoint.restore_state(self.ckpt_path, template)
+            state, step = checkpoint.restore_state(self.ckpt_path, template)
             if self.verbose:
                 print(f"resumed from checkpoint at step {step}")
-            return restored
-        state = create_train_state(self.cfg, self.cfg.seed, self.device)
-        if self.verbose:
-            from scrabblegan_torch.utils.summary import summarize_state
+        else:
+            state = create_train_state(self.cfg, self.cfg.seed, self.device)
+            if self.verbose:
+                from scrabblegan_torch.utils.summary import summarize_state
 
-            print("initialized networks (model.summary() analog):")
-            summarize_state(state)
+                print("initialized networks (model.summary() analog):")
+                summarize_state(state)
+        if self.mesh is not None:
+            prepare_state(self.cfg, self.mesh, state)
         return state
 
     def load_data(self, read_dir: Optional[str] = None, style_dir: Optional[str] = None,
@@ -231,12 +262,13 @@ class Trainer:
         state = self.init_state(resume=resume)
         if watchdog:
             watchdog.beat()
-        self.chunk = chunk = make_chunked_train_step(cfg, state.models)
+        self.chunk = chunk = make_chunked_train_step(cfg, state.models, mesh=self.mesh)
         if watchdog and chunk.graphs is not None:
             chunk.graphs.before_capture = lambda: watchdog.grace(cfg.io.compile_grace_s)
         start_step = state.step
         start_epoch = start_step // batches_per_epoch
-        writer = SummaryWriter(self.gen_path, append=start_step > 0)
+        writer = (SummaryWriter(self.gen_path, append=start_step > 0) if self.rank0
+                  else _NoWriter())
         z_gen = torch.Generator().manual_seed(cfg.seed + 1)
         noise = cfg.shared.z_source == "noise"
         k = self.steps_per_call
@@ -257,6 +289,12 @@ class Trainer:
             print(f"no. batch_per_epoch:   {batches_per_epoch}")
             print(f"epoch size:            {epochs}")
             print(f"device:                {self.device} ({where})")
+            if self.mesh is None:
+                print("step path:             " + ("CUDA graphs" if chunk.graphs is not None
+                                                    else "eager (CPU)"))
+            else:
+                print(f"step path:             eager, {self.mesh.shape} ranks over "
+                      f"{self.mesh.backend}")
             if k > 1 and batches_per_epoch % k:
                 print(f"steps_per_call={k}: epoch rounded to {calls_per_epoch * k} batches")
             print("training...", flush=True)
@@ -351,7 +389,8 @@ class Trainer:
                 watchdog.beat()
 
         writer.close()
-        make_gif(self.gen_path, "biggan.gif")
+        if self.rank0:
+            make_gif(self.gen_path, "biggan.gif")
         return state
 
     # ----------------------------------------------------------------- extras
@@ -371,15 +410,25 @@ class Trainer:
             times[part] = now - last[0]
             last[0] = now
 
-        serve_stats = self.standing_stats(state)
+        with unsharded(state):  # a parallel run: whole on every rank
+            self._epoch_artifacts(state, epoch, final, lap)
+        barrier()
+        times["total"] = sum(times.values())
+        self.artifact_secs.append(times)
+
+    def _epoch_artifacts(self, state: TrainState, epoch: int, final: bool, lap) -> None:
+        cfg = self.cfg
+        serve_stats = self.standing_stats(state)  # every rank: it draws from the batch stream
         lap("standing_stats")
+        ckpt_every = int(cfg.io.ckpt_every)
+        if not self.rank0:
+            return
         b = self.batches
         imgs = self.generate(state, b.seed_labels, b.seed_style, z=b.seed_z, stats=serve_stats)
         save_epoch_grid(imgs, b.seed_labels, self.gen_path, epoch, cfg.io.char_vec)
         lap("grid")
-        ckpt_every = int(cfg.io.ckpt_every)
         if ckpt_every > 0 and (final or epoch % ckpt_every == 0):
-            checkpoint.save_state(self.ckpt_path, state, state.step)
+            checkpoint.write_state(self.ckpt_path, state, state.step)  # whole here
         lap("checkpoint")
         checkpoint.save_generator(self.model_path, to_flax(
             state.models.generator, serving_override(state, serve_stats)), epoch, cfg)
@@ -397,8 +446,6 @@ class Trainer:
             except Exception as e:  # noqa: BLE001
                 print(f"export gate failed (export kept, unflagged): {e!r}")
         lap("gate")
-        times["total"] = sum(times.values())
-        self.artifact_secs.append(times)
 
     def _gate_export(self, state: TrainState, serve_stats, epoch: int) -> Optional[dict]:
         """Score this epoch's export with the rfid_rand gate and annotate

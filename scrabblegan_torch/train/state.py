@@ -56,6 +56,9 @@ class TrainState:
     # the dropout stream's seed on the device, 0-d int64: a step's masks are a
     # function of it and `step_t` (ops/dropout.py `step_key`)
     dropout_seed: torch.Tensor | None = None
+    # where each parameter, moment and EMA piece lives in a parallel run
+    # (parallel/fsdp.py `Layout`, set by `parallel.prepare_state`); None in one process
+    layout: object = None
 
     def __post_init__(self):
         device = next(self.models.generator.parameters()).device

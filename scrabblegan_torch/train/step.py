@@ -41,7 +41,22 @@ and EMA take `torch.where(take_g, new, old)`, bitwise what a skip gives
 (JAX's `lax.cond`); at `disc_iters` 1 there is no mask. `make_train_step`
 runs the body eagerly, one step a call; `make_chunked_train_step` runs K
 steps a call, as CUDA graphs on the card (train/graphs.py) and eagerly on
-the CPU. Not ported, raising NotImplementedError: the parallel modes.
+the CPU.
+
+With a mesh (`mesh=`, parallel/mesh.py; the state laid out by
+`parallel.prepare_state`) the body is one rank's part of the parallel step,
+JAX's DP, FSDP (parallel.fsdp), TP (parallel.model_parallel > 1) and
+FSDP x TP: each call takes the global batch and z and keeps this rank's
+data-axis rows; the networks run on parameters gathered at use
+(parallel/fsdp.py) and, for a layer split over the model axis, on this
+rank's output channels (parallel/tp.py); every batch reduction is the
+global batch's (the BN moments, the loss and metric means, the balance's
+stds, parallel/mesh.py) and the BiLSTM's dropout masks are the global
+batch's rows; the loss is seeded with 1/D, D the data axis's size, and
+the gradients of the parameters not split over the data axis are summed
+over it, so that every rank updates its pieces with the single process's
+gradient. A parallel chunk runs its K steps eagerly (gloo's collectives
+cannot be captured).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import contextlib
 from typing import Callable, Mapping
 
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
@@ -60,6 +76,10 @@ from scrabblegan_torch.ops.ctc import ctc_loss
 from scrabblegan_torch.ops.dropout import dropout_stream, step_key
 from scrabblegan_torch.ops.layers import commit_stats, record_stats
 from scrabblegan_torch.ops.losses import DISC_LOSS_REGISTRY, GEN_LOSS_REGISTRY
+from scrabblegan_torch.parallel.fsdp import gathered_params
+from scrabblegan_torch.parallel.mesh import (StepContext, all_reduce, current, global_pstd,
+                                             local_rows, sum_local_means, use_step)
+from scrabblegan_torch.parallel.tp import split_modules
 from scrabblegan_torch.train.optim import apply_updates, make_optimizers, update_ema
 from scrabblegan_torch.train.state import NETWORKS, TrainState
 
@@ -98,21 +118,54 @@ def stage_batch(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]
             for key, value in batch.items()}
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.parallel.fsdp or cfg.parallel.model_parallel > 1:
-        raise NotImplementedError("the parallel modes (fsdp, model_parallel) are not "
-                                  "ported yet")
+class _Nets:
+    """The four networks as a step calls them: `live(net)` trains the
+    parameters, `frozen(net)` passes gradients to the inputs only. In one
+    process these are the modules themselves; in a parallel step they run
+    on the parameters gathered once a step (parallel/fsdp.py)."""
+
+    def __init__(self, models: ModelBundle, gathered: dict | None = None):
+        self.modules = dict(zip(NETWORKS, (m for _, m in models.items())))
+        self.gathered = gathered or {}
+
+    def live(self, net: str) -> Callable:
+        module, params = self.modules[net], self.gathered.get(net)
+        if params is None:
+            return module
+        return lambda *args, **kwargs: functional_call(module, params, args, kwargs)
+
+    def frozen(self, net: str) -> Callable:
+        module, params = self.modules[net], self.gathered.get(net)
+        if params is None:
+            return _frozen(module)
+        detached = {name: p.detach() for name, p in params.items()}
+        return lambda *args: functional_call(module, detached, args)
 
 
-def make_step_body(cfg: Config, models: ModelBundle):
+def _sum_grads_over_data(state: TrainState, layout) -> None:
+    """Sum over the data axis the gradient of every parameter not split
+    over it, one all-reduce a network (a split one's arrives summed)."""
+    group = layout.mesh.group("data")
+    for net in NETWORKS:
+        params = [p for p, places in zip(state.params(net), layout.places[net])
+                  if not any(name == "data" for _, name in places)]
+        if not params:
+            continue
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        flat = all_reduce(_flatten_dense_tensors(grads), group)
+        for p, g in zip(params, _unflatten_dense_tensors(flat, grads)):
+            p.grad = g
+
+
+def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
     """Returns body(state, inputs, z) -> (16,) float32 metrics on the device.
 
     `inputs` holds the batch's leaves as device tensors (`stage_batch`), z
-    (B, latent_dim) for z_source='noise' likewise. The body takes one step:
-    the forwards, one backward, the statistics, the four updates and the EMA,
-    all in place, and advances `state.step_t`; it leaves `state.step` to its
-    caller."""
-    _check_supported(cfg)
+    (B, latent_dim) for z_source='noise' likewise; with a `mesh`, this
+    rank's rows of them (`local_rows`) and a state laid out by
+    `parallel.prepare_state`. The body takes one step: the forwards, one
+    backward, the statistics, the four updates and the EMA, all in place,
+    and advances `state.step_t`; it leaves `state.step` to its caller."""
     o = cfg.optimizer
     disc_loss_fn = DISC_LOSS_REGISTRY[o.loss_fn]
     gen_loss_fn = GEN_LOSS_REGISTRY[o.loss_fn]
@@ -129,11 +182,12 @@ def make_step_body(cfg: Config, models: ModelBundle):
     style_z = cfg.shared.z_source == "style"
     remat = cfg.shared.remat
     opts = make_optimizers(cfg)
-    G, D, R, W = models.generator, models.discriminator, models.recognizer, models.style_promoter
-    device = next(G.parameters()).device
+    device = next(models.generator.parameters()).device
 
-    def g_forward(labels, z, lengths, style_imgs):
+    def g_forward(G, labels, z, lengths, style_imgs):
         return G(labels, z, lengths, style_imgs=style_imgs).float()
+
+    data_rank = 0 if mesh is None else mesh.rank("data")
 
     def metric(v) -> torch.Tensor:
         if isinstance(v, torch.Tensor):
@@ -141,7 +195,8 @@ def make_step_body(cfg: Config, models: ModelBundle):
         return torch.full((), v, dtype=torch.float32, device=device)  # no host copy
 
     def forward_losses(inputs: Mapping[str, torch.Tensor], z: torch.Tensor | None,
-                       drop_key: torch.Tensor | None):
+                       drop_key: torch.Tensor | None, nets: _Nets):
+        G, D, R, W = (nets.live(net) for net in NETWORKS)
         real_imgs = normalize_images(inputs["real_imgs"], device)
         style_imgs = normalize_images(inputs["style_imgs"], device)
         real_labels = inputs["real_labels"].long()
@@ -165,10 +220,12 @@ def make_step_body(cfg: Config, models: ModelBundle):
                   style_imgs if style_z else None)
         with record_stats() as g_stats:
             if remat:  # the backward recomputes G's activations, outside any record
-                gen_imgs = checkpoint(g_forward, *g_args, use_reentrant=False,
-                                      preserve_rng_state=False)
+                step_ctx = current()  # re-entered for the recompute, on the backward's thread
+                gen_imgs = checkpoint(
+                    g_forward, G, *g_args, use_reentrant=False, preserve_rng_state=False,
+                    context_fn=lambda: (contextlib.nullcontext(), use_step(step_ctx)))
             else:
-                gen_imgs = g_forward(*g_args)
+                gen_imgs = g_forward(G, *g_args)
         if grad_norm_balance:
             gen_for_adv, gen_for_ctc = balanced_fanout(gen_imgs, o.balance_alpha)
         else:
@@ -179,7 +236,7 @@ def make_step_body(cfg: Config, models: ModelBundle):
         with record_stats() as d_stats:
             d_real = D(real_imgs, mask_real)
         d_fake_for_d = D(gen_sg, mask_fake)
-        d_fake_for_g = _frozen(D)(gen_for_adv, mask_fake)
+        d_fake_for_g = nets.frozen("d")(gen_for_adv, mask_fake)
 
         # W: on style images (statistics kept), then the passes the mode reads
         zeros = torch.zeros(bsz, device=device)
@@ -190,11 +247,11 @@ def make_step_body(cfg: Config, models: ModelBundle):
                 s_style = W(style_imgs)
             if mode == "style_vs_iam":
                 s_iam = W(real_imgs, mask_real)
-                s_fake_for_g = _frozen(W)(gen_for_adv, mask_fake)
+                s_fake_for_g = nets.frozen("w")(gen_for_adv, mask_fake)
             else:
                 s_gen_for_w = W(gen_sg, mask_fake)
                 if mode == "adversarial":
-                    s_fake_for_g = _frozen(W)(gen_for_adv, mask_fake)
+                    s_fake_for_g = nets.frozen("w")(gen_for_adv, mask_fake)
                 else:  # bug_compatible: G's style term reads W on IAM, a constant
                     with torch.no_grad():
                         s_iam = W(real_imgs, mask_real)
@@ -204,9 +261,10 @@ def make_step_body(cfg: Config, models: ModelBundle):
         r_fake = r_real = zeros
         if use_r:
             # the BiLSTM R's passes each restart the step's dropout stream
-            stream = (lambda: dropout_stream(drop_key)) if my_rec else contextlib.nullcontext
+            stream = ((lambda: dropout_stream(drop_key, data_rank)) if my_rec
+                      else contextlib.nullcontext)
             with stream():
-                r_logits_fake = _frozen(R)(gen_for_ctc)
+                r_logits_fake = nets.frozen("r")(gen_for_ctc)
             r_fake = ctc_loss(r_logits_fake, fake_labels, 4 * fake_lengths - 1, fake_lengths)
             with record_stats() as r_stats, stream():
                 r_logits_real = R(real_imgs)
@@ -231,8 +289,8 @@ def make_step_body(cfg: Config, models: ModelBundle):
             g_added = g_balanced = g_final = g_loss + r_fake
             r_balanced = r_fake
             alpha = o.balance_alpha
-            r_fake_std = torch.std(r_fake, correction=0)
-            g_loss_std = torch.std(g_loss, correction=0)
+            r_fake_std = global_pstd(r_fake)
+            g_loss_std = global_pstd(g_loss)
         elif use_r:
             g_balanced, r_balanced, alpha, r_fake_std, g_loss_std = gradient_balance(
                 r_fake, g_loss, alpha=o.balance_alpha)
@@ -243,18 +301,41 @@ def make_step_body(cfg: Config, models: ModelBundle):
             alpha, r_fake_std, g_loss_std = 0.0, zeros[0], zeros[0]
             g_added = g_final = g_loss
 
-        total = d_loss.mean() + s_loss.mean() + r_real.mean() + g_final.mean()
+        means = [d_loss.mean(), s_loss.mean(), r_real.mean(), g_final.mean()]
         values = (d_loss, d_loss_real, d_loss_fake, r_real, r_fake, r_balanced,
                   g_loss, g_added, g_balanced, g_final, alpha, r_fake_std, g_loss_std,
                   s_loss, s_loss_pos, s_loss_neg)
         metrics = torch.stack([metric(v) for v in values])
+        if mesh is not None:  # the global batch's means (the stds are global already)
+            means = list(sum_local_means(torch.stack(means)).unbind())
+            metrics = sum_local_means(metrics)
+        total = means[0] + means[1] + means[2] + means[3]
         return total, metrics, (g_stats, d_stats, r_stats, w_stats)
+
+    def parallel_forward_backward(state: TrainState, inputs, z, drop_key) -> tuple:
+        layout = state.layout
+        if layout is None or layout.mesh is not mesh:
+            raise ValueError("a parallel step needs the state laid out on its mesh "
+                             "(parallel.prepare_state)")
+        split = split_modules(models, layout)
+        with use_step(StepContext(mesh, split)):
+            nets = _Nets(models, {net: gathered_params(state, net, split)
+                                  for net in NETWORKS})
+            total, metrics, records = forward_losses(inputs, z, drop_key, nets)
+            if mesh.size("data") > 1:  # every data rank seeds the one loss
+                total = total / mesh.size("data")
+            total.backward()
+        _sum_grads_over_data(state, layout)
+        return metrics, records
 
     def body(state: TrainState, inputs: Mapping[str, torch.Tensor],
              z: torch.Tensor | None = None) -> torch.Tensor:
         drop_key = step_key(state.dropout_seed, state.step_t) if my_rec else None
-        total, metrics, records = forward_losses(inputs, z, drop_key)
-        total.backward()
+        if mesh is None:
+            total, metrics, records = forward_losses(inputs, z, drop_key, _Nets(models))
+            total.backward()
+        else:
+            metrics, records = parallel_forward_backward(state, inputs, z, drop_key)
         for record in records:
             commit_stats(record)
         # JAX's lax.cond on the cadence; its static fast path at disc_iters == 1
@@ -275,7 +356,11 @@ def make_step_body(cfg: Config, models: ModelBundle):
     return body
 
 
-def make_train_step(cfg: Config, models: ModelBundle):
+def _local(batch: Mapping[str, torch.Tensor], mesh, dim: int) -> dict[str, torch.Tensor]:
+    return {key: local_rows(value, mesh, dim) for key, value in batch.items()}
+
+
+def make_train_step(cfg: Config, models: ModelBundle, mesh=None):
     """Returns step(state, batch, z=None) -> {metric name: 0-d float32 tensor}.
 
     batch holds numpy arrays or tensors in the JAX package's layout:
@@ -286,22 +371,23 @@ def make_train_step(cfg: Config, models: ModelBundle):
     and in 'padded' shape mode real_lengths and fake_lengths (B,), the true
     word lengths. z (B, latent_dim) is required with z_source='noise'. The
     step runs the body eagerly and updates `state` in place: parameters,
-    statistics, optimizer states, EMA and step counters."""
-    body = make_step_body(cfg, models)
+    statistics, optimizer states, EMA and step counters. With a `mesh`,
+    batch and z are the global batch's; the rank keeps its rows."""
+    body = make_step_body(cfg, models, mesh)
     device = next(models.generator.parameters()).device
 
     def step(state: TrainState, batch: Mapping, z: torch.Tensor | None = None
              ) -> dict[str, torch.Tensor]:
         state.step_t.fill_(state.step)
-        metrics = body(state, stage_batch(batch, device),
-                       None if z is None else torch.as_tensor(z).to(device))
+        metrics = body(state, _local(stage_batch(batch, device), mesh, 0),
+                       None if z is None else local_rows(torch.as_tensor(z).to(device), mesh))
         state.step += 1
         return dict(zip(METRIC_NAMES, metrics.unbind()))
 
     return step
 
 
-def make_chunked_train_step(cfg: Config, models: ModelBundle):
+def make_chunked_train_step(cfg: Config, models: ModelBundle, mesh=None):
     """K = the batches' leading size train steps a call: the port of JAX's
     `make_chunked_train_step` (lax.scan over a stacked batch), the same as K
     sequential steps, the cadence on the step counter.
@@ -314,18 +400,21 @@ def make_chunked_train_step(cfg: Config, models: ModelBundle):
     batch-shape signature: its first steps run eagerly as the capture's
     warm-up, the next is captured, and every later one replays
     (train/graphs.py); a capture that fails raises. On the CPU it runs
-    eagerly. `chunk.graphs` is the `StepGraphs` (None on the CPU)."""
-    body = make_step_body(cfg, models)
+    eagerly, and so does a parallel step (`mesh`: each rank keeps its rows
+    of the global batches and z, `make_train_step`). `chunk.graphs` is the
+    `StepGraphs` (None on the CPU and in a parallel step)."""
+    body = make_step_body(cfg, models, mesh)
     device = next(models.generator.parameters()).device
     graphs = None
-    if device.type == "cuda":
+    if device.type == "cuda" and mesh is None:
         from scrabblegan_torch.train.graphs import StepGraphs
 
         graphs = StepGraphs(body, device)
 
     def chunk(state: TrainState, batches: Mapping, z=None) -> torch.Tensor:
-        batches = {key: torch.as_tensor(value) for key, value in batches.items()}
-        z = None if z is None else torch.as_tensor(z)
+        batches = _local({key: torch.as_tensor(value) for key, value in batches.items()},
+                         mesh, 1)
+        z = None if z is None else local_rows(torch.as_tensor(z), mesh, 1)
         k = next(iter(batches.values())).shape[0]
         state.step_t.fill_(state.step)
         if graphs is not None:

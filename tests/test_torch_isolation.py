@@ -1,7 +1,7 @@
 """The port stands alone: no module of `scrabblegan_torch/` and no line of
 `chip_smoke.py` imports JAX, flax, optax, orbax or the JAX package
-`scrabblegan_tpu`, nor cv2, PIL, matplotlib or imageio (the card's machine
-has none of them), and the port's own
+`scrabblegan_tpu`, nor cv2, PIL, matplotlib, imageio or pandas (the card's
+machine has none of them), and the port's own
 copy of the config loads every file and override to the tree the JAX
 package's loader builds."""
 
@@ -22,7 +22,7 @@ from scrabblegan_torch.data import loaders as port_loaders
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("scrabblegan_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
-IMAGE_LIBS = ("cv2", "PIL", "matplotlib", "imageio")  # not even imported lazily
+IMAGE_LIBS = ("cv2", "PIL", "matplotlib", "imageio", "pandas")  # not even imported lazily
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in (ROOT / "scrabblegan_torch").rglob("*.py")) + ["chip_smoke.py"]
 

@@ -251,8 +251,8 @@ def test_steps_cli_runs_steps_per_call_a_call(monkeypatch, capsys):
         make = fake_chunk_factory(nan_at=0)
         calls[k] = []
 
-        def recording(cfg, models, _make=make, _calls=calls[k]):
-            chunk = _make(cfg, models)
+        def recording(cfg, models, _make=make, _calls=calls[k], **kwargs):
+            chunk = _make(cfg, models, **kwargs)
 
             def call(state, batches, z=None):
                 _calls.append((batches, z))
@@ -296,7 +296,7 @@ def fake_chunk_factory(nan_at: int):
     metrics as one (16, K) tensor."""
     make_step = fake_step_factory(nan_at)
 
-    def make(cfg, models):
+    def make(cfg, models, **kwargs):
         step = make_step(cfg, models)
 
         def chunk(state, batches, z=None):
