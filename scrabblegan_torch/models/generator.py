@@ -18,6 +18,7 @@ from scrabblegan_torch.ops.attention import NonLocalBlock
 from scrabblegan_torch.ops.blocks import BatchNorm, ResNetBlockDown, ResNetBlockUp
 from scrabblegan_torch.ops.embedding import FilterBank
 from scrabblegan_torch.ops.layers import SNConv, SNDense
+from scrabblegan_torch.utils.profiling import span
 
 GEN_IN_CHANNELS = (512, 256, 128)  # scrabblegan_tpu gen_channels(32)
 GEN_OUT_CHANNELS = (256, 128, 64)
@@ -116,11 +117,19 @@ class Generator(nn.Module):
         (B, C, 32, W) with z_source='style' -> (B, C, 32, 16L).
 
         lengths: optional (B,) true word lengths ('padded' mode); columns at or
-        past 16*len are set to white (+1)."""
+        past 16*len are set to white (+1).
+
+        Traced (utils/profiling.py): span `g.forward` around the call, with
+        `g.style_encoder` inside it for style z."""
+        with span("g.forward"):
+            return self._forward(labels, z, lengths, style_imgs)
+
+    def _forward(self, labels, z, lengths, style_imgs) -> torch.Tensor:
         if self.z_source == "style":
             if style_imgs is None:
                 raise ValueError("z_source='style' requires style_imgs")
-            z = self.style_encoder(style_imgs)
+            with span("g.style_encoder"):
+                z = self.style_encoder(style_imgs)
         elif z is None:
             raise ValueError("z_source='noise' requires z")
         z = z.to(self.dtype)

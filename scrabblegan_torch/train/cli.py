@@ -100,8 +100,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batches-per-epoch", type=int, default=None,
                    help="default: io.buf_size / shared.batch_size + 1")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="trace the first N Trainer steps with torch.profiler (written to "
-                        "<workdir>/output/trace) and print steps/s")
+                   help="trace the first N Trainer calls with torch.profiler (trace.json, "
+                        "ops.txt and the tracer's spans.json in <workdir>/output/trace) and "
+                        "print the median replay ms and the host ms a call")
     p.add_argument("--synthetic", action="store_true",
                    help="write a synthetic data set under <workdir>/synthetic_data and "
                         "train on it")

@@ -26,6 +26,11 @@ otherwise) and runs K steps a call by replaying one step's graph K times:
 - replay: a step replays and clones the 16 metrics out of the static
   output, and a call stacks its K columns into a fresh (16, K) tensor, so
   that a block of pending metrics never aliases the newest step's;
+- tracing (utils/profiling.py): each warm-up step and each capture is a
+  `once` span (`graphs.warmup`, `graphs.capture`); the capture keeps the
+  step's phase marks as event-record nodes of the graph (`capture_marks`),
+  so every replay times its phases on the device; while tracing is on a
+  replay is also timed as a whole (`profiling.replay`);
 - the kernels' launch counters count a capture's launches once and a
   replay not at all: the counts a capture added are taken back and added
   again on every replay, so the counters stay exact;
@@ -45,13 +50,13 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Callable, Optional
 
 import torch
 
 from scrabblegan_torch.kernels import attention, fused_block
 from scrabblegan_torch.train.state import TrainState
+from scrabblegan_torch.utils import profiling
 
 WARMUP_STEPS = 2  # eager steps of a signature on the capture stream before its capture
 CAPTURE_LOCK = threading.Lock()
@@ -85,6 +90,7 @@ class CapturedStep:
     counts: tuple[int, ...]          # kernel launches a replay, by COUNTERS
     capture_s: float                 # the capture itself, wall seconds
     pool_bytes: int                  # device memory the capture reserved for its pool
+    marks: profiling.Marks           # the step's phase marks, recorded by every replay
 
 
 def signature(batches: dict[str, torch.Tensor], z: Optional[torch.Tensor]) -> tuple:
@@ -134,7 +140,7 @@ class StepGraphs:
                 continue
             if step is None:
                 step = self.captured[sig] = self._capture(state, inputs)
-            step.graph.replay()
+            profiling.replay(step.graph, step.marks)
             cols.append(step.metrics.clone())
             _add_counts(step.counts)
         return torch.stack(cols, dim=1)
@@ -143,7 +149,7 @@ class StepGraphs:
         """One warm-up step: the body on the capture stream."""
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), profiling.once("graphs.warmup"):
             metrics = self.body(state, inputs.batch, inputs.z)
         current.wait_stream(self._stream)
         metrics.record_stream(current)
@@ -159,15 +165,15 @@ class StepGraphs:
                 p.grad = None
         graph = torch.cuda.CUDAGraph()
         before = counter_values()
-        t0 = time.perf_counter()
-        with CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                            capture_error_mode="thread_local"):
+        with profiling.once("graphs.capture") as took, CAPTURE_LOCK, \
+                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                 capture_error_mode="thread_local"), \
+                profiling.capture_marks() as marks:
             reserved = torch.cuda.memory_reserved(self.device)  # after the cache was emptied
             metrics = self.body(state, inputs.batch, inputs.z)
             pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        capture_s = time.perf_counter() - t0
         counts = tuple(a - b for a, b in zip(counter_values(), before))
         _add_counts(counts, -1)  # a capture launches nothing
         if self._pool is None:
             self._pool = graph.pool()
-        return CapturedStep(graph, inputs, metrics, counts, capture_s, pool_bytes)
+        return CapturedStep(graph, inputs, metrics, counts, took.seconds, pool_bytes, marks)

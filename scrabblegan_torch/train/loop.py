@@ -78,6 +78,7 @@ from scrabblegan_torch.train.standing import standing_stats as _standing_stats
 from scrabblegan_torch.train.state import TrainState, create_train_state, new_train_state
 from scrabblegan_torch.train.step import (METRIC_NAMES, make_chunked_train_step,
                                           normalize_images)
+from scrabblegan_torch.utils import profiling
 from scrabblegan_torch.utils.viz import make_gif, save_epoch_grid
 
 
@@ -96,7 +97,10 @@ def bucketed_regime_warning(cfg: Config, epochs: int) -> Optional[str]:
 
 class _Prefetcher:
     """A thread that makes `count` items with `make` into a queue of `depth`
-    ahead of the consumer; an error in the thread is raised by `get`."""
+    ahead of the consumer; an error in the thread is raised by `get`.
+    Traced (utils/profiling.py): span `feed.make` around each item's making
+    on the thread, span `feed.wait` around each `get`, and counter
+    `feed.empty` when a `get` finds the queue empty."""
 
     def __init__(self, make, count: int, depth: int = 2):
         self._make = make
@@ -112,7 +116,8 @@ class _Prefetcher:
             for _ in range(self._count):
                 if self._stop.is_set():
                     return
-                item = self._make()
+                with profiling.span("feed.make"):
+                    item = self._make()
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.25)
@@ -123,14 +128,17 @@ class _Prefetcher:
             self._err = e
 
     def get(self):
-        while True:
-            if self._err is not None:
-                raise self._err
-            try:
-                return self._q.get(timeout=0.25)
-            except queue.Empty:
-                if not self._thread.is_alive() and self._err is None and self._q.empty():
-                    raise RuntimeError("prefetcher thread exited unexpectedly")
+        with profiling.span("feed.wait"):
+            if self._q.empty():
+                profiling.count("feed.empty")
+            while True:
+                if self._err is not None:
+                    raise self._err
+                try:
+                    return self._q.get(timeout=0.25)
+                except queue.Empty:
+                    if not self._thread.is_alive() and self._err is None and self._q.empty():
+                        raise RuntimeError("prefetcher thread exited unexpectedly")
 
     def close(self):
         """Stop the thread and wait for it: no draw is left in flight."""
@@ -329,20 +337,21 @@ class Trainer:
                               f"r={row['r_loss_real']:.3f}, s={row['s_loss_real']:.3f}",
                               flush=True)
 
-        if profile_steps:
-            from scrabblegan_torch.utils import profiling
-
+        if profile_steps:  # traced as training runs them: nothing waits for the device
             trace_dir = os.path.join(self.gen_path, "trace")
-            timer = profiling.StepTimer(warmup=min(2, max(0, profile_steps - 1)))
             with profiling.trace(trace_dir):
                 for _ in range(profile_steps):
                     batches = self._host_chunk()
-                    with profiling.annotate("train_step"):
-                        metrics = chunk(state, batches, draw_z())
-                    timer.tick(metrics)
+                    with profiling.span("train.call"):
+                        chunk(state, batches, draw_z())
             if self.verbose:
-                print(f"[profile] {profile_steps} calls traced to {trace_dir}; "
-                      f"{timer.steps_per_sec * k:.2f} steps/s")
+                snap = profiling.snapshot()
+                replays = snap["replay_ms"]
+                replay = (f"{float(np.median(replays)):.2f} ms a replay (median of "
+                          f"{len(replays)})" if replays else "no replay")
+                host_ms = 1e3 * snap["spans"]["train.call"]["seconds"] / profile_steps
+                print(f"[profile] {profile_steps} calls traced to {trace_dir}; {replay}; "
+                      f"{host_ms:.2f} host ms a call", flush=True)
 
         first_artifacts = True
         for epoch_idx in range(start_epoch, epochs):

@@ -43,6 +43,14 @@ runs the body eagerly, one step a call; `make_chunked_train_step` runs K
 steps a call, as CUDA graphs on the card (train/graphs.py) and eagerly on
 the CPU.
 
+The body marks its phases (utils/profiling.py `mark`): step.inputs, g.fwd,
+d.fwd, w.fwd, r.fwd, ctc, r.fwd, ctc, losses, backward.drw, backward.g
+(the gradient's arrival at G's output, a hook on `gen_imgs` set while
+marks are recorded), stats, update, ema, step.end. A captured graph keeps
+them as timing events that every replay records, so each phase's device
+time is read from its mark to the next; eagerly they record only their
+order, and only while tracing is on.
+
 With a mesh (`mesh=`, parallel/mesh.py; the state laid out by
 `parallel.prepare_state`) the body is one rank's part of the parallel step,
 JAX's DP, FSDP (parallel.fsdp), TP (parallel.model_parallel > 1) and
@@ -82,6 +90,7 @@ from scrabblegan_torch.parallel.mesh import (StepContext, all_reduce, current, g
 from scrabblegan_torch.parallel.tp import split_modules
 from scrabblegan_torch.train.optim import apply_updates, make_optimizers, update_ema
 from scrabblegan_torch.train.state import NETWORKS, TrainState
+from scrabblegan_torch.utils.profiling import mark, marking
 
 # The 16 per-step statistics, in the JAX step's order.
 METRIC_NAMES = (
@@ -218,6 +227,7 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
             raise ValueError("z_source='noise' needs z")
         g_args = (fake_labels, None if style_z else z, fake_lengths if padded else None,
                   style_imgs if style_z else None)
+        mark("g.fwd")
         with record_stats() as g_stats:
             if remat:  # the backward recomputes G's activations, outside any record
                 step_ctx = current()  # re-entered for the recompute, on the backward's thread
@@ -231,8 +241,11 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
         else:
             gen_for_adv = gen_for_ctc = gen_imgs
         gen_sg = gen_imgs.detach()
+        if marking():  # the gradient's arrival at G's output splits the backward
+            gen_imgs.register_hook(lambda grad: mark("backward.g"))
 
         # D: on real (statistics kept), on fake for D, on fake for G (frozen)
+        mark("d.fwd")
         with record_stats() as d_stats:
             d_real = D(real_imgs, mask_real)
         d_fake_for_d = D(gen_sg, mask_fake)
@@ -243,6 +256,7 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
         w_stats = {}
         s_style = s_iam = s_gen_for_w = s_fake_for_g = zeros
         if use_w:
+            mark("w.fwd")
             with record_stats() as w_stats:
                 s_style = W(style_imgs)
             if mode == "style_vs_iam":
@@ -263,12 +277,18 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
             # the BiLSTM R's passes each restart the step's dropout stream
             stream = ((lambda: dropout_stream(drop_key, data_rank)) if my_rec
                       else contextlib.nullcontext)
+            mark("r.fwd")
             with stream():
                 r_logits_fake = nets.frozen("r")(gen_for_ctc)
+            mark("ctc")
             r_fake = ctc_loss(r_logits_fake, fake_labels, 4 * fake_lengths - 1, fake_lengths)
+            mark("r.fwd")
             with record_stats() as r_stats, stream():
                 r_logits_real = R(real_imgs)
+            mark("ctc")
             r_real = ctc_loss(r_logits_real, real_labels, 4 * real_lengths - 1, real_lengths)
+
+        mark("losses")
 
         if mode == "bug_compatible":
             s_neg, s_for_g = s_gen_for_w, s_iam.detach()
@@ -324,22 +344,27 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
             total, metrics, records = forward_losses(inputs, z, drop_key, nets)
             if mesh.size("data") > 1:  # every data rank seeds the one loss
                 total = total / mesh.size("data")
+            mark("backward.drw")
             total.backward()
         _sum_grads_over_data(state, layout)
         return metrics, records
 
     def body(state: TrainState, inputs: Mapping[str, torch.Tensor],
              z: torch.Tensor | None = None) -> torch.Tensor:
+        mark("step.inputs")
         drop_key = step_key(state.dropout_seed, state.step_t) if my_rec else None
         if mesh is None:
             total, metrics, records = forward_losses(inputs, z, drop_key, _Nets(models))
+            mark("backward.drw")
             total.backward()
         else:
             metrics, records = parallel_forward_backward(state, inputs, z, drop_key)
+        mark("stats")
         for record in records:
             commit_stats(record)
         # JAX's lax.cond on the cadence; its static fast path at disc_iters == 1
         take_g = None if o.disc_iters == 1 else (state.step_t + 1) % o.disc_iters == 0
+        mark("update")
         for net in NETWORKS:
             params = state.params(net)
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
@@ -349,8 +374,10 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
             for p in params:
                 p.grad = None
         if state.g_ema is not None:
+            mark("ema")
             update_ema(state.g_ema, state.params("g"), o.g_ema_decay, take_g)
         state.step_t.add_(1)
+        mark("step.end")
         return metrics
 
     return body
