@@ -7,6 +7,8 @@ laid side by side along the width; three CBN up-blocks conditioned on z1..z3
 (channels 256/128/64, strides (2,2), (2,2), (2,1)); non-local attention after
 B3; final BN, relu, 3x3 SN conv, tanh. Labels (B, L) give images
 (B, C, 32, 16L) in [-1, 1]. Train mode (`.train()`) is the layers' own.
+On a card, an inference call replays a CUDA graph of the forward, captured
+on the second call of its signature (models/forward_graphs.py).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from scrabblegan_torch.models.forward_graphs import ForwardGraphs
 from scrabblegan_torch.ops.attention import NonLocalBlock
 from scrabblegan_torch.ops.blocks import BatchNorm, ResNetBlockDown, ResNetBlockUp
 from scrabblegan_torch.ops.embedding import FilterBank
@@ -109,6 +112,7 @@ class Generator(nn.Module):
         self.final_bn = BatchNorm(GEN_OUT_CHANNELS[-1], device=device)
         self.to_image = SNConv(GEN_OUT_CHANNELS[-1], img_channels, (3, 3),
                                use_sn=use_sn, dtype=dtype, device=device)
+        self.forward_graphs = ForwardGraphs()  # not a submodule: outside state_dict, not copied
 
     def forward(self, labels: torch.Tensor, z: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None,
@@ -119,10 +123,15 @@ class Generator(nn.Module):
         lengths: optional (B,) true word lengths ('padded' mode); columns at or
         past 16*len are set to white (+1).
 
+        In eval mode with gradients off on a card, a CUDA graph of the
+        forward serves the call (models/forward_graphs.py); the output is a
+        fresh tensor either way.
+
         Traced (utils/profiling.py): span `g.forward` around the call, with
-        `g.style_encoder` inside it for style z."""
+        `g.style_encoder` inside it for style z when the forward runs
+        eagerly (not on a replay)."""
         with span("g.forward"):
-            return self._forward(labels, z, lengths, style_imgs)
+            return self.forward_graphs(self, self._forward, (labels, z, lengths, style_imgs))
 
     def _forward(self, labels, z, lengths, style_imgs) -> torch.Tensor:
         if self.z_source == "style":

@@ -33,45 +33,31 @@ otherwise) and runs K steps a call by replaying one step's graph K times:
   replay is also timed as a whole (`profiling.replay`);
 - the kernels' launch counters count a capture's launches once and a
   replay not at all: the counts a capture added are taken back and added
-  again on every replay, so the counters stay exact;
+  again on every replay, so the counters stay exact (utils/capture.py);
 - memory: all graphs of one `StepGraphs` share one pool. That is safe here:
   a replay reads only the static inputs and the state, which live outside
   the pool, and its one output is copied out before the next replay, so no
   graph's memory must outlive its replay. The pool therefore holds about
   one step's activations, however many bucket pairs are captured.
 
-No fallback: a failed capture raises. `CAPTURE_LOCK` is held for the length
-of a capture; a device round trip from another thread (the stall
-watchdog's probe) takes it first, since a device-wide synchronisation
-during a capture would invalidate it.
+No fallback: a failed capture raises. `CAPTURE_LOCK` (utils/capture.py) is
+held for the length of a capture; a device round trip from another thread
+(the stall watchdog's probe) takes it first, since a device-wide
+synchronisation during a capture would invalidate it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Callable, Optional
 
 import torch
 
-from scrabblegan_torch.kernels import attention, fused_block
 from scrabblegan_torch.train.state import TrainState
 from scrabblegan_torch.utils import profiling
+from scrabblegan_torch.utils.capture import CAPTURE_LOCK, add_counts, counter_values
 
 WARMUP_STEPS = 2  # eager steps of a signature on the capture stream before its capture
-CAPTURE_LOCK = threading.Lock()
-# the kernels' counters (module, attribute), kept exact under replay
-COUNTERS = ((attention, "launches"), (attention, "bwd_launches"),
-            (attention, "bwd_dout_copies"), (fused_block, "launches"))
-
-
-def counter_values() -> tuple[int, ...]:
-    return tuple(getattr(module, name) for module, name in COUNTERS)
-
-
-def _add_counts(counts: tuple[int, ...], sign: int = 1) -> None:
-    for (module, name), n in zip(COUNTERS, counts):
-        setattr(module, name, getattr(module, name) + sign * n)
 
 
 @dataclasses.dataclass
@@ -142,7 +128,7 @@ class StepGraphs:
                 step = self.captured[sig] = self._capture(state, inputs)
             profiling.replay(step.graph, step.marks)
             cols.append(step.metrics.clone())
-            _add_counts(step.counts)
+            add_counts(step.counts)
         return torch.stack(cols, dim=1)
 
     def _eager(self, state: TrainState, inputs: _Inputs) -> torch.Tensor:
@@ -173,7 +159,7 @@ class StepGraphs:
             metrics = self.body(state, inputs.batch, inputs.z)
             pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         counts = tuple(a - b for a, b in zip(counter_values(), before))
-        _add_counts(counts, -1)  # a capture launches nothing
+        add_counts(counts, -1)  # a capture launches nothing
         if self._pool is None:
             self._pool = graph.pool()
         return CapturedStep(graph, inputs, metrics, counts, took.seconds, pool_bytes, marks)

@@ -1,0 +1,32 @@
+"""What every CUDA graph capture of the port shares: the capture lock and the
+kernels' launch counters kept exact under replay.
+
+- `CAPTURE_LOCK` is held for the length of a capture (train/graphs.py,
+  models/forward_graphs.py); a device round trip from another thread (the
+  stall watchdog's probe) takes it first, since a device-wide
+  synchronisation during a capture would invalidate it.
+- The hand-written kernels count their launches (`kernels/attention.py`,
+  `kernels/fused_block.py`). A capture launches nothing, so the counts it
+  added are taken back (`add_counts(counts, -1)`) and added again on every
+  replay (`add_counts(counts)`).
+"""
+
+from __future__ import annotations
+
+import threading
+
+from scrabblegan_torch.kernels import attention, fused_block
+
+CAPTURE_LOCK = threading.Lock()
+# the kernels' counters (module, attribute), kept exact under replay
+COUNTERS = ((attention, "launches"), (attention, "bwd_launches"),
+            (attention, "bwd_dout_copies"), (fused_block, "launches"))
+
+
+def counter_values() -> tuple[int, ...]:
+    return tuple(getattr(module, name) for module, name in COUNTERS)
+
+
+def add_counts(counts: tuple[int, ...], sign: int = 1) -> None:
+    for (module, name), n in zip(COUNTERS, counts):
+        setattr(module, name, getattr(module, name) + sign * n)

@@ -152,7 +152,7 @@ def device_roundtrip_probe(device, lock: Optional[threading.Lock] = None
                            ) -> Callable[[], object]:
     """A liveness probe for `device`: on a card, a synchronisation and one
     element's round trip to the host; on the CPU, one element. `lock`, if
-    given, is held around it (train/graphs.py `CAPTURE_LOCK`: no
+    given, is held around it (utils/capture.py `CAPTURE_LOCK`: no
     device-wide synchronisation while a CUDA graph is being captured)."""
     import torch
 
