@@ -179,6 +179,19 @@ lines are printed by the parent), phase 21 and the count last:
    one launch of the core (or the fused kernel) a call, the kernel in a
    profiler trace of the bundle, images/s beside the eager G's, the export
    seconds and the bundle's bytes;
+BigGAN 128 x 128 (configs/biggan128.json) adds phase 23, in a child process
+of its own right after phase 22:
+
+23. (a) the train CLI, 20 steps at batch 256 on the captured step: exit 0, a
+   finite metric line a step, its steps/s and peak device memory; (b) the
+   forward and backward kernels at (Ca, Cg) = (24, 96) and (12, 48) at the
+   step's shapes (batch 256, Q 4096, K 1024, bf16) through their wrappers
+   against the plain core within 2e-2, two backward runs bitwise equal;
+   (c) the captured step fed by the class feed: the attention launches by
+   width of each eager warm-up step and of 5 replays, each set to 0 just
+   before its call and read just after it (1 at 24x96 and 3 at 12x48, in
+   the forward and in the backward); finite metrics, ms a replay, peak
+   memory;
 then the FLOP count (utils/flops.py, JAX's conventions) of G's forward at
 batch 1024, len 5 and 10, and of one train step of phase 18's and phase
 20's configurations, each over this run's times as a share of 989 TFLOP/s,
@@ -2370,6 +2383,168 @@ def variant_phase() -> int:
     return 0
 
 
+BIGGAN_PHASE = "--biggan-phase"  # the argument under which the script runs phase 23
+BIGGAN_CONFIG = ROOT / "configs" / "biggan128.json"
+BIGGAN_WIDTHS = {(24, 96): "G", (12, 48): "D"}  # (Ca, Cg) of each network's attention
+BIGGAN_Q, BIGGAN_K = 4096, 1024  # the attention at 64 x 64: queries, pooled keys
+BIGGAN_CLI_STEPS = 20
+BIGGAN_REPLAYS = 5
+# attention launches a step by width: G's forward once, D's three times
+# (real, fake for D, fake for G); each backward once per forward
+BIGGAN_PER_STEP = {"24x96": 1, "12x48": 3}
+
+
+def check_biggan_cli() -> dict:
+    """Phase 23 (a): `python -m scrabblegan_torch.train --config
+    configs/biggan128.json --steps BIGGAN_CLI_STEPS` in a process of its own
+    (batch 256, the published widths, bf16, the captured step): exit 0, a
+    finite metric line a step, its steps/s and peak device memory."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "scrabblegan_torch.train", "--config",
+                           str(BIGGAN_CONFIG), "--steps", str(BIGGAN_CLI_STEPS)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    rate = [ln for ln in lines if "steps/s" in ln]
+    peak = [ln for ln in lines if ln.startswith("peak device memory")]
+    if (proc.returncode != 0 or len(steps) != BIGGAN_CLI_STEPS or "nan" in proc.stdout
+            or "inf" in " ".join(steps) or len(rate) != 1 or len(peak) != 1):
+        raise AssertionError(f"the BigGAN train CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    row = {"steps": BIGGAN_CLI_STEPS, "seconds": time.perf_counter() - t0,
+           "steps_per_s": rate[0], "peak": peak[0], "last_step": steps[-1][:160]}
+    say("23 biggan cli", card=card_line(), config="configs/biggan128.json", **row)
+    return row
+
+
+def check_biggan_kernels(attention, gen) -> dict:
+    """Phase 23 (b): the forward and backward kernels at (24, 96) and (12, 48)
+    at the BigGAN step's shapes (batch 256, Q 4096, K 1024, bf16), through
+    their wrappers, against the plain core at the bf16 tolerances (2e-2);
+    two backward runs bitwise equal. Returns the largest error a width."""
+    from scrabblegan_torch.config import load_config
+
+    batch = load_config(str(BIGGAN_CONFIG)).shared.batch_size
+    worst = {}
+    for (ca, cg), net in BIGGAN_WIDTHS.items():
+        th, ph, g, d = [torch.randn(batch, c, n, generator=gen, device="cuda").bfloat16()
+                        for c, n in ((ca, BIGGAN_Q), (ca, BIGGAN_K), (cg, BIGGAN_K),
+                                     (cg, BIGGAN_Q))]
+        what = f"BigGAN {net} attention {ca}x{cg}"
+        fwd_err = check_close(f"forward at {what}", attention.nonlocal_attention_packed(th, ph, g),
+                              attention.attention_reference(th, ph, g), TOL[torch.bfloat16])
+        torch.cuda.empty_cache()
+        got = attention._launch_backward(th, ph, g, d)
+        again = attention._launch_backward(th, ph, g, d)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"backward at {what}: two runs differ")
+        del again
+        ref = attention.attention_backward_reference(th, ph, g, d)
+        torch.cuda.synchronize()
+        errs = [check_close(f"backward {name} at {what}", x, y, BWD_TOL[torch.bfloat16])
+                for name, x, y in zip(("dtheta", "dphi", "dg"), got, ref)]
+        say("23 biggan kernels-vs-plain", what=what, dtype="bfloat16", batch=batch,
+            q=BIGGAN_Q, k=BIGGAN_K, fwd_max_abs_err=fwd_err, bwd_max_abs_err=errs,
+            tol=TOL[torch.bfloat16], bwd_tol=BWD_TOL[torch.bfloat16], deterministic=True,
+            plan=attention.backward_plan(batch, BIGGAN_Q, BIGGAN_K, sm_count()))
+        worst[f"{ca}x{cg}"] = max(fwd_err, *errs)
+        del th, ph, g, d, got, ref
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_biggan_step(attention) -> dict:
+    """Phase 23 (c): the captured BigGAN step (configs/biggan128.json, batch
+    256) fed by the class feed: the graph's eager warm-up steps, the
+    capture, then BIGGAN_REPLAYS replays; the attention launches by width of
+    each call, the counts set to 0 just before it and read just after, equal
+    to BIGGAN_PER_STEP (a replay's counts added back by utils/capture.py);
+    finite metrics; ms a replay (CUDA events) and peak memory. Returns the
+    launches of a replay by counter."""
+    from scrabblegan_torch.config import load_biggan, load_config
+    from scrabblegan_torch.data.classes import synthetic_classes
+    from scrabblegan_torch.train.classes import class_feed
+    from scrabblegan_torch.train.graphs import WARMUP_STEPS
+    from scrabblegan_torch.train.state import create_train_state
+    from scrabblegan_torch.train.step import make_chunked_train_step
+
+    cfg, spec = load_config(str(BIGGAN_CONFIG)), load_biggan(str(BIGGAN_CONFIG))
+    device = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(device)
+    state = create_train_state(cfg, 23, device, spec)
+    chunk = make_chunked_train_step(cfg, state.models)
+    images, labels = synthetic_classes(2 * cfg.shared.batch_size, spec.resolution,
+                                       spec.n_classes, 23)
+    calls = WARMUP_STEPS + 1 + 2 * BIGGAN_REPLAYS
+    feed = class_feed(cfg, spec, images, labels, cfg.shared.batch_size, 23, calls, device)
+    want = {f"attention.{kind}.{width}": n for width, n in BIGGAN_PER_STEP.items()
+            for kind in ("launches", "bwd_launches")}
+    want.update({key: 0 for key in attention.width_launches if key not in want})
+    per_call, metrics = [], []
+    try:
+        for call in range(WARMUP_STEPS + 1 + BIGGAN_REPLAYS):
+            batch = feed.get()
+            for key in attention.width_launches:
+                attention.width_launches[key] = 0
+            metrics.append(chunk(state, batch))
+            torch.cuda.synchronize()
+            per_call.append(dict(attention.width_launches))
+        kinds = ["eager warm-up"] * WARMUP_STEPS + ["capture"] + ["replay"] * BIGGAN_REPLAYS
+        for kind, counts in zip(kinds, per_call):
+            if kind != "capture" and counts != want:
+                raise AssertionError(f"BigGAN step, {kind}: launches {counts}, want {want}")
+        block = torch.stack(metrics).float()
+        if not bool(torch.isfinite(block).all()):
+            raise AssertionError("BigGAN step: metrics not finite")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        batches = [feed.get() for _ in range(BIGGAN_REPLAYS)]
+        start.record()
+        for batch in batches:
+            chunk(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        feed.close()
+    row = {"launches_per_replay": per_call[-1], "capture_call": per_call[WARMUP_STEPS],
+           "ms_per_replay": start.elapsed_time(end) / BIGGAN_REPLAYS,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+           "d_loss_g_loss_last": [float(block[-1, 0, 0]), float(block[-1, 6, 0])]}
+    say("23 biggan captured step", card=card_line(), config="configs/biggan128.json",
+        batch=cfg.shared.batch_size, **row)
+    del state, chunk
+    return row
+
+
+def run_biggan_phase() -> dict:
+    """Phase 23 in a child process (this script with BIGGAN_PHASE): batch 256
+    at 128 x 128 holds about 45 GB, apart from the other phases' pools. Its
+    result lines are printed here too; returns its errors and launches."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), BIGGAN_PHASE],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 23 exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def biggan_phase() -> int:
+    """The child of `run_biggan_phase`: phase 23 (a), (b), (c), then one JSON
+    line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = "nhwc1"
+    from scrabblegan_torch.kernels import attention
+
+    cli = check_biggan_cli()
+    errs = check_biggan_kernels(attention, torch.Generator(device="cuda").manual_seed(23))
+    step = check_biggan_step(attention)
+    print(json.dumps({"max_abs_err": errs, "launches": step["launches_per_replay"],
+                      "cli": cli}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2432,6 +2607,10 @@ def main() -> int:
     # 22. the parallel modes (NCCL at world size 1; gloo on 2 and 4 ranks of this
     # card) and the bench twin, in a process of its own beside its ranks
     parallel = run_parallel_phase()
+
+    # 23. BigGAN 128 x 128: its CLI, the kernels at its widths and shapes, its
+    # captured step's launches, in a process of its own
+    biggan = run_biggan_phase()
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2634,6 +2813,9 @@ def main() -> int:
          "variant_step_launches": variant_launches["fwd"],
          "bundle_launches": bundle_launches["nhwc1"][0],
          "parallel_step_launches_per_rank": {m: v["fwd"] for m, v in parallel["launches"].items()},
+         "biggan_step_launches": {k: v for k, v in biggan["launches"].items()
+                                  if ".launches." in k},
+         "biggan_max_abs_err": biggan["max_abs_err"],
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), core_bound(BATCH, 2560, 640, torch.bfloat16,
@@ -2647,6 +2829,9 @@ def main() -> int:
          "iam_campaign_launches": iam_launches["bwd"],
          "variant_step_launches": variant_launches["bwd"],
          "parallel_step_launches_per_rank": {m: v["bwd"] for m, v in parallel["launches"].items()},
+         "biggan_step_launches": {k: v for k, v in biggan["launches"].items()
+                                  if ".bwd_launches." in k},
+         "biggan_max_abs_err": biggan["max_abs_err"],
          "max_abs_err": bwd_err,
          "shape": "G B3 len 5, batch 16, f32", "ms": bwd_row["kernel_ms"],
          **{key: bwd_row[key] for key in ("plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2683,4 +2868,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(variant_phase() if sys.argv[1:] == [VARIANT_PHASE]
-             else parallel_phase() if sys.argv[1:] == [PARALLEL_PHASE] else main())
+             else parallel_phase() if sys.argv[1:] == [PARALLEL_PHASE]
+             else biggan_phase() if sys.argv[1:] == [BIGGAN_PHASE] else main())

@@ -107,6 +107,34 @@ class ParallelConfig:
     model_parallel: int = 1
 
 
+@dataclass(frozen=True)
+class BigGANConfig:
+    """The widths of BigGAN (models/biggan.py), read from a config file's
+    "biggan" section (`load_biggan`). It is not a field of `Config`, whose
+    tree stays the JAX package's; a file with the section trains BigGAN.
+    Defaults: 128 x 128, ch 96, as the authors' `G_arch[128]` / `D_arch[128]`."""
+    resolution: int = 128
+    ch: int = 96
+    n_classes: int = 1000
+    dim_z: int = 120
+    shared_dim: int = 128
+    g_mult: Tuple[int, ...] = (16, 16, 8, 4, 2, 1)  # G's channels / ch, from 4 x 4 up
+    d_mult: Tuple[int, ...] = (1, 2, 4, 8, 16, 16)  # D's blocks' channels / ch
+    g_attention: int = 64  # the width G's non-local block runs at
+    d_attention: int = 64  # likewise D's
+    bn_momentum: float = 0.9  # flax's convention: PyTorch's momentum 0.1
+
+
+def load_biggan(path: Optional[str]) -> Optional[BigGANConfig]:
+    """The "biggan" section of a JSON config file as a BigGANConfig, or None
+    when the file has none (a ScrabbleGAN config)."""
+    if not path:
+        return None
+    with open(path) as f:
+        data = json.load(f).get("biggan")
+    return None if data is None else _dataclass_from_dict(BigGANConfig, data)
+
+
 _SECTIONS = {"optimizer": OptimizerConfig, "shared": SharedSpecs, "io": IOConfig,
              "parallel": ParallelConfig}
 

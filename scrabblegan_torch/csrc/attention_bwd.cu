@@ -11,9 +11,15 @@
 //   dtheta_q = sum_k dS_qk phi_k,  dphi_k = sum_q dS_qk theta_q,
 //   dg_k     = sum_q A_qk dout_q
 //
-// Operands are channel-packed as in the forward: thetaT (B, 8, Q), phiT
-// (B, 8, K), gT (B, 32, K), doutT (B, 32, Q); the grads have the operands'
-// shapes and dtypes (float32 or bfloat16).
+// Operands are channel-packed as in the forward: thetaT (B, Ca, Q), phiT
+// (B, Ca, K), gT (B, Cg, K), doutT (B, Cg, Q); the grads have the operands'
+// shapes and dtypes. (Ca, Cg) is (8, 32) in float32 or bfloat16, or (12, 48)
+// or (24, 96) in bfloat16: each pair is a template instance of the three
+// kernels (`Widths` in attention_mma.cuh). A score product takes Ca in k8
+// steps, Ca = 12 padded with zero channels to two; a dA product takes Cg in
+// k16 steps, three for Cg = 48 (`ChannelFragments`). At (24, 96) the gradient
+// kernel's tiles and dtheta slots take 116 KB of shared memory, one block an
+// SM, and its registers are not bounded below 255.
 //
 // What bounds it on this card. The work is 176 flops and one exponential a
 // (query, key) pair; at the train step's shapes (batch 16) a call is 1.6 M
@@ -57,7 +63,7 @@
 //    layout of m16n8k16). dtheta needs dS with queries as rows: movmatrix
 //    transposes the 8x8 blocks in registers, and dS phi of the warp's 16 keys
 //    goes to shared memory, where the block's warps are summed in order into
-//    the key tile's partial dtheta (B x key tiles x 8 x Q float32). The grid
+//    the key tile's partial dtheta (B x key tiles x Ca x Q float32). The grid
 //    is (key tiles, query splits, B); the host picks the split.
 // 3. `attention_bwd_reduce_kernel`: dtheta = sum over key tiles, dphi and dg = sum over
 //    query splits, in order, rounded once to the operands' dtype.
@@ -136,18 +142,67 @@ __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t (&out)[N
   }
 }
 
-// One tile of 128 columns from column c0: `a`'s 8 channels into rows 0..7 and
-// `c`'s 32 into rows 8..39 of every part's plane.
-template <int P>
-__device__ __forceinline__ void stage_tile(bf16 (*dst)[kCt][kRow], const Src& a, const Src& c,
-                                           int b, int c0, bool vec) {
+// One tile of 128 columns from column c0: `a`'s CA channels into rows
+// 0..CA - 1 and `c`'s CG into rows kCaP.. of every part's plane (rows 0..7 and
+// 8..39 at the default widths); the padding rows between are left alone.
+template <int P, int CA, int CG>
+__device__ __forceinline__ void stage_tile(bf16 (*dst)[Widths<CA, CG>::kCt][kRow], const Src& a,
+                                           const Src& c, int b, int c0, bool vec) {
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    stage_rows(dst[p], a.plane(p, b), kCa, a.rs, c0, a.rs, vec);
-    stage_rows(dst[p] + kCa, c.plane(p, b), kCg, c.rs, c0, c.rs, vec);
+    stage_rows(dst[p], a.plane(p, b), CA, a.rs, c0, a.rs, vec);
+    stage_rows(dst[p] + Widths<CA, CG>::kCaP, c.plane(p, b), CG, c.rs, c0, c.rs, vec);
   }
   cp_async_commit();
 }
+
+// Loads the B fragments of a k16 product whose B operand is CG channels of a
+// staged tile from row r0 (channels as the contraction, `ldmatrix.trans`),
+// for the 8-column n-tiles at columns col(n): full[i][n] holds the k16 steps
+// 2 i and 2 i + 1 (channels 32 i.. of the four 8-row matrices), and, where CG
+// is an odd number of k16 steps, half[n / 2][2 (n % 2)..] the last one, two
+// n-tiles a load.
+template <int CG, int N>
+struct ChannelFragments {
+  static constexpr int kFull = CG / 32, kHalf = (CG % 32) / 16;
+  uint32_t full[kFull > 0 ? kFull : 1][N][4];
+  uint32_t half[kHalf ? N / 2 : 1][4];
+
+  template <typename Col>
+  __device__ __forceinline__ void load(bf16 (*tile)[kRow], int r0, Col col) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < kFull; ++i)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        ldmatrix_x4_trans(full[i][n], &tile[r0 + 32 * i + (lane >> 3) * 8 + (lane & 7)][col(n)]);
+    if constexpr (kHalf > 0) {
+#pragma unroll
+      for (int n2 = 0; n2 < N / 2; ++n2)
+        ldmatrix_x4_trans(half[n2], &tile[r0 + 32 * kFull + ((lane >> 3) & 1) * 8 + (lane & 7)]
+                                         [col(2 * n2 + (lane >> 4))]);
+    }
+  }
+  // d0[n] += a[2 i] b and d1[n] += a[2 i + 1] b over the full pairs, then d0[n]
+  // += the last step: consecutive mma go to different accumulators
+  template <int M>
+  __device__ __forceinline__ void mma(float (&d0)[M][4], float (&d1)[M][4],
+                                      const uint32_t (&a)[CG / 16][4]) const {
+    static_assert(M == N, "an accumulator a tile");
+#pragma unroll
+    for (int i = 0; i < kFull; ++i) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) mma_16816(d0[n], a[2 * i], full[i][n][0], full[i][n][1]);
+#pragma unroll
+      for (int n = 0; n < N; ++n) mma_16816(d1[n], a[2 * i + 1], full[i][n][2], full[i][n][3]);
+    }
+    if constexpr (kHalf > 0) {
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        mma_16816(d0[n], a[2 * kFull], half[n >> 1][2 * (n & 1)], half[n >> 1][2 * (n & 1) + 1]);
+    }
+  }
+};
 
 // ---- 0. float32 operands as bfloat16 planes --------------------------------------
 
@@ -188,14 +243,26 @@ __global__ void attention_bwd_split_kernel(SplitJobs jobs, int batch) {
 
 // ---- 1. lse and c per query --------------------------------------------------------
 
-template <int P>
-__global__ void __launch_bounds__(kThreads, P > 1 ? 3 : 4)  // blocks an SM: shared memory's limit
+// blocks an SM the kernels ask for: shared memory's limit at the default
+// widths; registers' at the wider ones
+template <int P, int CG>
+__host__ __device__ constexpr int stats_blocks() {
+  return P > 1 ? 3 : CG <= 32 ? 4 : CG <= 48 ? 3 : 2;
+}
+template <int P, int CG>
+__host__ __device__ constexpr int grads_blocks() {
+  return P > 1 ? 2 : CG <= 32 ? 4 : CG <= 48 ? 3 : 1;
+}
+
+template <int P, int CA, int CG>
+__global__ void __launch_bounds__(kThreads, stats_blocks<P, CG>())
 attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ lse_out,
                  float* __restrict__ c_out, int q_len, int k_len, int wq, int vec_k) {
+  using W = Widths<CA, CG>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16(*kv)[P][kCt][kRow] = reinterpret_cast<bf16(*)[P][kCt][kRow]>(smem);  // [buffer][part]
+  bf16(*kv)[P][W::kCt][kRow] = reinterpret_cast<bf16(*)[P][W::kCt][kRow]>(smem);  // [buffer][part]
   float(*merge)[kRows][3] =
-      reinterpret_cast<float(*)[kRows][3]>(smem + sizeof(bf16) * 2 * P * kCt * kRow);
+      reinterpret_cast<float(*)[kRows][3]>(smem + sizeof(bf16) * 2 * P * W::kCt * kRow);
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -204,10 +271,12 @@ attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ l
   const int q0 = (blockIdx.x * wq + qw) * kRows;
   const bool warp_active = q0 < q_len;
 
-  stage_tile<P>(kv[0], ph, gg, b, 0, vec_k);
+  stage_tile<P, CA, CG>(kv[0], ph, gg, b, 0, vec_k);
+  if constexpr (W::kCaP > CA) zero_rows(kv[0][0], 2 * P, W::kCt, CA, W::kCaP);
 
-  // A fragments for the whole walk: theta (16 x 8), dout (16 x 32, two k16 steps)
-  uint32_t ta[P][2], doa[P][2][4];
+  // A fragments for the whole walk: theta (16 x kCaP, a k8 step a pair of
+  // registers, zero past CA), dout (16 x CG, a k16 step a row)
+  uint32_t ta[P][2 * W::kKs], doa[P][CG / 16][4];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const bf16* tp = th.plane(p, b);
@@ -216,10 +285,14 @@ attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ l
     for (int h = 0; h < 2; ++h) {
       const int q = q0 + 8 * h + g;
       const bool ok = q < q_len;
-      const bf16* col = tp + (long long)(2 * t) * th.rs + q;  // channels 2 t, 2 t + 1
-      ta[p][h] = pack_if(ok, col, col + th.rs);
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
+      for (int ks = 0; ks < W::kKs; ++ks) {
+        const int c = 8 * ks + 2 * t;  // channels c, c + 1
+        const bf16* col = tp + (long long)c * th.rs + q;
+        ta[p][2 * ks + h] = pack_if(ok && (W::kCaP == CA || c < CA), col, col + th.rs);
+      }
+#pragma unroll
+      for (int s = 0; s < CG / 16; ++s)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const long long ch = 16 * s + 8 * hh + 2 * t;
@@ -235,18 +308,18 @@ attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ l
   const int tiles = (k_len + kKt - 1) / kKt;
   for (int it = 0; it < tiles; ++it) {
     if (it + 1 < tiles) {  // the next tile loads under this one's math
-      stage_tile<P>(kv[(it + 1) & 1], ph, gg, b, (it + 1) * kKt, vec_k);
+      stage_tile<P, CA, CG>(kv[(it + 1) & 1], ph, gg, b, (it + 1) * kKt, vec_k);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     if (warp_active) {
-      bf16(*cur)[kCt][kRow] = kv[it & 1];
+      bf16(*cur)[W::kCt][kRow] = kv[it & 1];
       const int kn = min(kKt, k_len - it * kKt);
       for (int j0 = kg * kKs; j0 < kn; j0 += nkg * kKs) {
         // consecutive mma go to different accumulators (a dependent one waits
-        // for the whole latency of the one before): the two k16 steps of dA
+        // for the whole latency of the one before): alternate k16 steps of dA
         // have their own and are added at the end
         float s[4][4], da[4][4], da1[4][4];
 #pragma unroll
@@ -255,20 +328,20 @@ attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ l
           for (int e = 0; e < 4; ++e) s[nt][e] = da[nt][e] = da1[nt][e] = 0.f;
 #pragma unroll
         for (int pj = 0; pj < P; ++pj) {
-          uint32_t pb[4];     // phi: four n-tiles of 8 keys
-          uint32_t gb[4][4];  // g: channels 0..15 and 16..31 of each n-tile
-          ldmatrix_x4_trans(pb, &cur[pj][lane & 7][j0 + (lane >> 3) * 8]);
+          uint32_t pb[W::kKs][4];        // phi: four n-tiles of 8 keys, a k8 step each
+          ChannelFragments<CG, 4> gb;    // g: k16 steps of channels of each n-tile
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            ldmatrix_x4_trans(gb[nt], &cur[pj][kCa + (lane >> 3) * 8 + (lane & 7)][j0 + nt * 8]);
+          for (int ks = 0; ks < W::kKs; ++ks)
+            ldmatrix_x4_trans(pb[ks], &cur[pj][8 * ks + (lane & 7)][j0 + (lane >> 3) * 8]);
+          gb.load(cur[pj], W::kCaP, [&](int nt) { return j0 + nt * 8; });
 #pragma unroll
           for (int pi = 0; pi < P - pj; ++pi) {
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_16808_add(s[nt], ta[pi], pb[nt]);
+            for (int ks = 0; ks < W::kKs; ++ks)
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_16816(da[nt], doa[pi][0], gb[nt][0], gb[nt][1]);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_16816(da1[nt], doa[pi][1], gb[nt][2], gb[nt][3]);
+              for (int nt = 0; nt < 4; ++nt)
+                mma_16808_add(s[nt], ta[pi][2 * ks], ta[pi][2 * ks + 1], pb[ks][nt]);
+            gb.mma(da, da1, doa[pi]);
           }
         }
 #pragma unroll
@@ -350,18 +423,21 @@ attention_bwd_stats_kernel(Src th, Src ph, Src gg, Src dd, float* __restrict__ l
 
 // ---- 2. the gradients, keys as rows ---------------------------------------------------
 
-template <int P, int R>
-__global__ void __launch_bounds__(kThreads, P > 1 ? 2 : 4)  // blocks an SM: shared memory's limit
+template <int P, int R, int CA, int CG>
+__global__ void __launch_bounds__(kThreads, grads_blocks<P, CG>())
 attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restrict__ lse,
                  const float* __restrict__ cq, float* __restrict__ dth_part,
                  float* __restrict__ dkv_part, int q_len, int k_len, int tiles_per_split,
                  int vec_q) {
+  using W = Widths<CA, CG>;
+  constexpr int KS = W::kKs;
   constexpr int kTerms = P > R ? P : R;  // parts i of A or dS and j of an operand: i + j < kTerms
+  constexpr int kGroups = KS + W::kNt;   // 8-row groups of a staged tile: theta's, then dout's
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16(*qv)[P][kCt][kRow] = reinterpret_cast<bf16(*)[P][kCt][kRow]>(smem);  // [buffer][part]
+  bf16(*qv)[P][W::kCt][kRow] = reinterpret_cast<bf16(*)[P][W::kCt][kRow]>(smem);  // [buffer][part]
   float(*st)[2][kQt] =
-      reinterpret_cast<float(*)[2][kQt]>(smem + sizeof(bf16) * 2 * P * kCt * kRow);  // lse, c
-  float(*slots)[kCa][kSlotRow] = reinterpret_cast<float(*)[kCa][kSlotRow]>(st + 2);
+      reinterpret_cast<float(*)[2][kQt]>(smem + sizeof(bf16) * 2 * P * W::kCt * kRow);  // lse, c
+  float(*slots)[W::kCaP][kSlotRow] = reinterpret_cast<float(*)[W::kCaP][kSlotRow]>(st + 2);
 
   const int b = blockIdx.z, kt = blockIdx.x, split = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -375,7 +451,7 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
   const float* c_b = cq + (long long)b * q_len;
 
   auto stage = [&](int tile) {
-    stage_tile<P>(qv[(tile - t0) & 1], th, dd, b, tile * kQt, vec_q);
+    stage_tile<P, CA, CG>(qv[(tile - t0) & 1], th, dd, b, tile * kQt, vec_q);
     for (int i = threadIdx.x; i < kQt; i += kThreads) {
       const int q = tile * kQt + i;
       st[(tile - t0) & 1][0][i] = q < q_len ? lse_b[q] : INFINITY;  // A = 0 past the end
@@ -383,12 +459,14 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
     }
   };
   stage(t0);
+  if constexpr (W::kCaP > CA) zero_rows(qv[0][0], 2 * P, W::kCt, CA, W::kCaP);
 
-  // A fragments of the warp's 16 keys: phi^T (16 x 8), g^T (16 x 32, two k16
-  // steps); phi again as the B operand of dtheta (16 keys x 8 channels). Keys
-  // past the end are zero in all three: their rows of A^T and dS^T are finite,
-  // add nothing to dtheta, and their dphi and dg are not stored.
-  uint32_t pa[P][2], ga[P][2][4], pbk[P][2];
+  // A fragments of the warp's 16 keys: phi^T (16 x kCaP, a k8 step a pair of
+  // registers), g^T (16 x CG, a k16 step a row); phi again as the B operand
+  // of dtheta (16 keys x 8 channels a tile). Keys past the end and channels
+  // past CA are zero in all three: their rows of A^T and dS^T are finite, add
+  // nothing to dtheta, and their dphi and dg are not stored.
+  uint32_t pa[P][2 * KS], ga[P][CG / 16][4], pbk[P][KS][2];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const bf16* pp = ph.plane(p, b);
@@ -397,28 +475,39 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
     for (int h = 0; h < 2; ++h) {
       const int key = key0 + 8 * h + g;
       const bool ok = key < k_len;
-      const bf16* col = pp + (long long)(2 * t) * ph.rs + key;  // channels 2 t, 2 t + 1
-      pa[p][h] = pack_if(ok, col, col + ph.rs);
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
+      for (int ks = 0; ks < KS; ++ks) {
+        const int c = 8 * ks + 2 * t;  // channels c, c + 1
+        const bf16* col = pp + (long long)c * ph.rs + key;
+        pa[p][2 * ks + h] = pack_if(ok && (W::kCaP == CA || c < CA), col, col + ph.rs);
+      }
+#pragma unroll
+      for (int s = 0; s < CG / 16; ++s)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const long long ch = 16 * s + 8 * hh + 2 * t;
           ga[p][s][h + 2 * hh] = pack_if(ok, gp + ch * gg.rs + key, gp + (ch + 1) * gg.rs + key);
         }
-      const int kb = key0 + 8 * h + 2 * t;  // keys 2 t, 2 t + 1 of half h, channel g
+      const int kb = key0 + 8 * h + 2 * t;  // keys 2 t, 2 t + 1 of half h, channel 8 ks + g
       const bf16 zero = __float2bfloat16(0.f);
-      const bf16* row = pp + (long long)g * ph.rs;
-      pbk[p][h] = pack_bf16(kb < k_len ? row[kb] : zero, kb + 1 < k_len ? row[kb + 1] : zero);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const bool in = W::kCaP == CA || 8 * ks + g < CA;
+        const bf16* row = pp + (long long)(8 * ks + g) * ph.rs;
+        pbk[p][ks][h] = pack_bf16(in && kb < k_len ? row[kb] : zero,
+                                  in && kb + 1 < k_len ? row[kb + 1] : zero);
+      }
     }
   }
 
-  float dphi[4], dg[4][4];  // rows: keys g, g + 8; columns: channels 2 t, 2 t + 1 (+ 8 ct)
+  // rows: keys g, g + 8; columns: channels 2 t, 2 t + 1 (+ 8 ks or 8 ct)
+  float dphi[KS][4], dg[W::kNt][4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    dphi[e] = 0.f;
 #pragma unroll
-    for (int ct = 0; ct < 4; ++ct) dg[ct][e] = 0.f;
+    for (int ks = 0; ks < KS; ++ks) dphi[ks][e] = 0.f;
+#pragma unroll
+    for (int ct = 0; ct < W::kNt; ++ct) dg[ct][e] = 0.f;
   }
 
   for (int tile = t0; tile < t1; ++tile) {
@@ -431,13 +520,15 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
     }
     __syncthreads();
     if (warp_active) {
-      bf16(*cur)[kCt][kRow] = qv[buf];
+      bf16(*cur)[W::kCt][kRow] = qv[buf];
       const int qn = min(kQt, q_len - tile * kQt);
       for (int j0 = 0; j0 < qn; j0 += kKs) {
-        uint32_t tb[P][4];  // theta: four n-tiles of 8 queries
+        uint32_t tb[P][KS][4];  // theta: four n-tiles of 8 queries, a k8 step each
 #pragma unroll
         for (int p = 0; p < P; ++p)
-          ldmatrix_x4_trans(tb[p], &cur[p][lane & 7][j0 + (lane >> 3) * 8]);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            ldmatrix_x4_trans(tb[p][ks], &cur[p][8 * ks + (lane & 7)][j0 + (lane >> 3) * 8]);
 #pragma unroll
         for (int hq = 0; hq < 2; ++hq) {  // steps of 16 queries
           const int j1 = j0 + kRows * hq;
@@ -451,18 +542,16 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
             for (int e = 0; e < 4; ++e) s[n][e] = da[n][e] = da1[n][e] = 0.f;
 #pragma unroll
           for (int pj = 0; pj < P; ++pj) {
-            uint32_t db[2][4];  // dout: channels 0..15 and 16..31 of each n-tile
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-              ldmatrix_x4_trans(db[n], &cur[pj][kCa + (lane >> 3) * 8 + (lane & 7)][j1 + n * 8]);
+            ChannelFragments<CG, 2> db;  // dout: k16 steps of channels of each n-tile
+            db.load(cur[pj], W::kCaP, [&](int n) { return j1 + n * 8; });
 #pragma unroll
             for (int pi = 0; pi < P - pj; ++pi) {
 #pragma unroll
-              for (int n = 0; n < 2; ++n) mma_16808_add(s[n], pa[pi], tb[pj][2 * hq + n]);
+              for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-              for (int n = 0; n < 2; ++n) mma_16816(da[n], ga[pi][0], db[n][0], db[n][1]);
-#pragma unroll
-              for (int n = 0; n < 2; ++n) mma_16816(da1[n], ga[pi][1], db[n][2], db[n][3]);
+                for (int n = 0; n < 2; ++n)
+                  mma_16808_add(s[n], pa[pi][2 * ks], pa[pi][2 * ks + 1], tb[pj][ks][2 * hq + n]);
+              db.mma(da, da1, ga[pi]);
             }
           }
 #pragma unroll
@@ -497,28 +586,40 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
             dst[pi][2] = movmatrix_trans(dsp[pi][1]);
             dst[pi][3] = movmatrix_trans(dsp[pi][3]);
           }
-          float dth[4] = {0.f, 0.f, 0.f, 0.f};
+          float dth[KS][4];
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dth[ks][e] = 0.f;
           const int col = j1 + ((lane >> 3) & 1) * 8;
 #pragma unroll
           for (int pj = 0; pj < P; ++pj) {
-            uint32_t r0[4], r1[4], r2[4];
-            // rows theta | dout 0..7, dout 8..15 | 16..23, dout 24..31 (twice)
-            ldmatrix_x4(r0, &cur[pj][(lane & 7) + 8 * (lane >> 4)][col]);
-            ldmatrix_x4(r1, &cur[pj][16 + (lane & 7) + 8 * (lane >> 4)][col]);
-            ldmatrix_x4(r2, &cur[pj][32 + (lane & 7)][col]);
+            // the tile's 8-row groups two a load (theta's, then dout's; an odd
+            // last group twice): group u is fr[u / 2][2 (u % 2)], [.. + 1]
+            uint32_t fr[(kGroups + 1) / 2][4];
+#pragma unroll
+            for (int i = 0; i < (kGroups + 1) / 2; ++i) {
+              const int grp = min(2 * i + (lane >> 4), kGroups - 1);
+              ldmatrix_x4(fr[i], &cur[pj][8 * grp + (lane & 7)][col]);
+            }
 #pragma unroll
             for (int pi = 0; pi < R && pi < kTerms - pj; ++pi) {
-              mma_16816(dphi, dsp[pi], r0[0], r0[1]);
-              mma_16816(dg[0], ap[pi], r0[2], r0[3]);
-              mma_16816(dg[1], ap[pi], r1[0], r1[1]);
-              mma_16816(dg[2], ap[pi], r1[2], r1[3]);
-              mma_16816(dg[3], ap[pi], r2[0], r2[1]);
-              mma_16816(dth, dst[pi], pbk[pj][0], pbk[pj][1]);
+#pragma unroll
+              for (int u = 0; u < kGroups; ++u) {
+                const uint32_t b0 = fr[u >> 1][2 * (u & 1)], b1 = fr[u >> 1][2 * (u & 1) + 1];
+                if (u < KS) mma_16816(dphi[u], dsp[pi], b0, b1);
+                else mma_16816(dg[u - KS], ap[pi], b0, b1);
+              }
+#pragma unroll
+              for (int ks = 0; ks < KS; ++ks)
+                mma_16816(dth[ks], dst[pi], pbk[pj][ks][0], pbk[pj][ks][1]);
             }
           }
 #pragma unroll
-          for (int e = 0; e < 4; ++e)  // queries g, g + 8; channels 2 t, 2 t + 1
-            slots[warp][2 * t + (e & 1)][j1 + g + 8 * (e >> 1)] = dth[e];
+          for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)  // queries g, g + 8; channels 8 ks + 2 t, + 1
+              slots[warp][8 * ks + 2 * t + (e & 1)][j1 + g + 8 * (e >> 1)] = dth[ks][e];
         }
       }
     }
@@ -526,10 +627,10 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
     {
       // the key tile's partial dtheta: the block's warps in order. Unrolled, so
       // that a thread's loads are all in flight before its first sum.
-      float* out = dth_part + ((long long)b * gridDim.x + kt) * kCa * q_len;
-      const int j = threadIdx.x;  // kQt == kThreads: a thread sums one query's 8 channels
+      float* out = dth_part + ((long long)b * gridDim.x + kt) * CA * q_len;
+      const int j = threadIdx.x;  // kQt == kThreads: a thread sums one query's CA channels
 #pragma unroll
-      for (int ch = 0; ch < kCa; ++ch) {
+      for (int ch = 0; ch < CA; ++ch) {
         float v = slots[0][ch][j];
 #pragma unroll
         for (int w = 1; w < kWarps; ++w) v += w < warps_active ? slots[w][ch][j] : 0.f;
@@ -539,15 +640,19 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
   }
 
   if (warp_active) {
-    float* out = dkv_part + ((long long)b * gridDim.y + split) * kCt * k_len;
+    float* out = dkv_part + ((long long)b * gridDim.y + split) * (CA + CG) * k_len;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = key0 + g + 8 * (e >> 1);
       const int ch = 2 * t + (e & 1);
       if (key >= k_len) continue;
-      out[(long long)ch * k_len + key] = dphi[e];
 #pragma unroll
-      for (int ct = 0; ct < 4; ++ct) out[(long long)(kCa + 8 * ct + ch) * k_len + key] = dg[ct][e];
+      for (int ks = 0; ks < KS; ++ks)
+        if (W::kCaP == CA || 8 * ks + ch < CA)
+          out[(long long)(8 * ks + ch) * k_len + key] = dphi[ks][e];
+#pragma unroll
+      for (int ct = 0; ct < W::kNt; ++ct)
+        out[(long long)(CA + 8 * ct + ch) * k_len + key] = dg[ct][e];
     }
   }
 }
@@ -557,12 +662,12 @@ attention_bwd_grads_kernel(Src th, Src ph, Src gg, Src dd, const float* __restri
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
 
-template <typename T>
+template <typename T, int CA, int CG>
 __global__ void attention_bwd_reduce_kernel(const float* __restrict__ dth_part,
                                   const float* __restrict__ dkv_part, T* __restrict__ dthetaT,
                                   T* __restrict__ dphiT, T* __restrict__ dgT, int batch, int q_len,
                                   int k_len, int key_tiles, int splits) {
-  const long long nq = (long long)kCa * q_len, nk = (long long)kCt * k_len;
+  const long long nq = (long long)CA * q_len, nk = (long long)(CA + CG) * k_len;
   const long long total = batch * (nq + nk);
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
@@ -577,7 +682,7 @@ __global__ void attention_bwd_reduce_kernel(const float* __restrict__ dth_part,
       const float* part = dkv_part + b * splits * nk + r;
       float v = part[0];
       for (int j = 1; j < splits; ++j) v += part[j * nk];
-      const long long na = (long long)kCa * k_len;
+      const long long na = (long long)CA * k_len;
       if (r < na) store(dphiT + b * na + r, v);
       else store(dgT + b * (nk - na) + r - na, v);
     }
@@ -588,14 +693,14 @@ __global__ void attention_bwd_empty_kernel() {}
 
 // ---- the host side -----------------------------------------------------------------------
 
-template <int P>
-constexpr int stats_smem() {
-  return sizeof(bf16) * 2 * P * kCt * kRow + sizeof(float) * kWarps * kRows * 3;
+template <int P, int CA, int CG>
+__host__ __device__ constexpr int stats_smem() {
+  return sizeof(bf16) * 2 * P * Widths<CA, CG>::kCt * kRow + sizeof(float) * kWarps * kRows * 3;
 }
-template <int P>
-constexpr int grads_smem() {
-  return sizeof(bf16) * 2 * P * kCt * kRow +
-         sizeof(float) * (2 * 2 * kQt + kWarps * kCa * kSlotRow);
+template <int P, int CA, int CG>
+__host__ __device__ constexpr int grads_smem() {
+  return sizeof(bf16) * 2 * P * Widths<CA, CG>::kCt * kRow +
+         sizeof(float) * (2 * 2 * kQt + kWarps * Widths<CA, CG>::kCaP * kSlotRow);
 }
 
 inline int blocks_for(long long elements) {
@@ -618,7 +723,7 @@ inline Src own_plane(const void* p, long long bs, int n, int* vec) {
   return Src{static_cast<const bf16*>(p), 0, bs, n};
 }
 
-template <typename T>
+template <typename T, int CA, int CG>
 cudaError_t launch(const Call& c, cudaStream_t s) {
   constexpr int P = Parts<T>::kParts, R = Parts<T>::kRegParts;
   const int key_tiles = (c.k_len + kKeys - 1) / kKeys;
@@ -643,11 +748,11 @@ cudaError_t launch(const Call& c, cudaStream_t s) {
       at += P * plane;
       return out;
     };
-    th = planes_of(c.thetaT, c.theta_bs, kCa, c.q_len);
-    ph = planes_of(c.phiT, c.phi_bs, kCa, c.k_len);
-    gg = planes_of(c.gT, c.g_bs, kCg, c.k_len);
-    dd = planes_of(c.doutT, c.dout_bs, kCg, c.q_len);
-    const dim3 grid(blocks_for((long long)c.batch * kCg * dd.rs / 8), 4);
+    th = planes_of(c.thetaT, c.theta_bs, CA, c.q_len);
+    ph = planes_of(c.phiT, c.phi_bs, CA, c.k_len);
+    gg = planes_of(c.gT, c.g_bs, CG, c.k_len);
+    dd = planes_of(c.doutT, c.dout_bs, CG, c.q_len);
+    const dim3 grid(blocks_for((long long)c.batch * CG * dd.rs / 8), 4);
     attention_bwd_split_kernel<P><<<grid, 256, 0, s>>>(jobs, c.batch);
   }
   // more than 48 KB of shared memory a block has to be asked for, once per device
@@ -656,24 +761,27 @@ cudaError_t launch(const Call& c, cudaStream_t s) {
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= 64 || !asked[device]) {
-    err = cudaFuncSetAttribute(attention_bwd_stats_kernel<P>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, stats_smem<P>());
+    err = cudaFuncSetAttribute(attention_bwd_stats_kernel<P, CA, CG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               stats_smem<P, CA, CG>());
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attention_bwd_grads_kernel<P, R>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, grads_smem<P>());
+    err = cudaFuncSetAttribute(attention_bwd_grads_kernel<P, R, CA, CG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               grads_smem<P, CA, CG>());
     if (err != cudaSuccess) return err;
     if (device < 64) asked[device] = true;
   }
   const int wq = c.query_warps;
   const dim3 stats_grid((c.q_len + kRows * wq - 1) / (kRows * wq), c.batch);
-  attention_bwd_stats_kernel<P><<<stats_grid, kThreads, stats_smem<P>(), s>>>(
+  attention_bwd_stats_kernel<P, CA, CG><<<stats_grid, kThreads, stats_smem<P, CA, CG>(), s>>>(
       th, ph, gg, dd, c.lse, c.cq, c.q_len, c.k_len, wq, vec_k);
   const dim3 grads_grid(key_tiles, splits, c.batch);
-  attention_bwd_grads_kernel<P, R><<<grads_grid, kThreads, grads_smem<P>(), s>>>(
+  attention_bwd_grads_kernel<P, R, CA, CG><<<grads_grid, kThreads, grads_smem<P, CA, CG>(), s>>>(
       th, ph, gg, dd, c.lse, c.cq, c.dth_part, c.dkv_part, c.q_len, c.k_len, c.tiles_per_split,
       vec_q);
-  const long long outs = (long long)c.batch * (kCa * (long long)c.q_len + kCt * (long long)c.k_len);
-  attention_bwd_reduce_kernel<T><<<blocks_for(outs), 256, 0, s>>>(
+  const long long outs =
+      (long long)c.batch * (CA * (long long)c.q_len + (CA + CG) * (long long)c.k_len);
+  attention_bwd_reduce_kernel<T, CA, CG><<<blocks_for(outs), 256, 0, s>>>(
       c.dth_part, c.dkv_part, static_cast<T*>(c.dthetaT), static_cast<T*>(c.dphiT),
       static_cast<T*>(c.dgT), c.batch, c.q_len, c.k_len, key_tiles, splits);
   return cudaGetLastError();
@@ -681,10 +789,13 @@ cudaError_t launch(const Call& c, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dthetaT (B, 8, Q), dphiT (B, 8, K) and
-// dgT (B, 32, K) are dense. Scratch, all written before it is read: lse and cq
-// float32 (B, Q); dth_part float32 (B, key tiles, 8, Q) with ceil(K / 64) key
-// tiles; dkv_part float32 (B, splits, 40, K) with ceil(ceil(Q / 128) /
+// dtype: 0 = float32, 1 = bfloat16. (ca, cg): the channels of theta and phi,
+// and of g and dout: (8, 32) in either dtype, (12, 48) and (24, 96) in
+// bfloat16; any other pair returns cudaErrorInvalidValue and launches
+// nothing. dthetaT (B, ca, Q), dphiT (B, ca, K) and dgT (B, cg, K) are
+// dense. Scratch, all written before it is read: lse and cq float32 (B, Q);
+// dth_part float32 (B, key tiles, ca, Q) with ceil(K / 64) key tiles;
+// dkv_part float32 (B, splits, ca + cg, K) with ceil(ceil(Q / 128) /
 // tiles_per_split) splits; planes, float32 operands only, bfloat16
 // 3 x B x 40 x (Q + K, each rounded up to 8). query_warps is 1, 2 or 4 and
 // tiles_per_split at least 1: the caller's plan.
@@ -696,8 +807,8 @@ extern "C" int attention_bwd(const void* thetaT, const void* phiT, const void* g
                              void* lse, void* cq, void* dth_part, void* dkv_part, void* planes,
                              int batch, int q_len, int k_len, long long theta_bs,
                              long long phi_bs, long long g_bs, long long dout_bs,
-                             int query_warps, int tiles_per_split, int dtype, int device,
-                             void* stream) {
+                             int query_warps, int tiles_per_split, int ca, int cg, int dtype,
+                             int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if ((query_warps != 1 && query_warps != 2 && query_warps != 4) || tiles_per_split < 1 ||
@@ -708,8 +819,14 @@ extern "C" int attention_bwd(const void* thetaT, const void* phiT, const void* g
                static_cast<float*>(dkv_part), static_cast<bf16*>(planes), batch, q_len, k_len,
                theta_bs, phi_bs, g_bs, dout_bs, query_warps, tiles_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return static_cast<int>(launch<bf16>(c, s));
-  if (dtype == 0) return static_cast<int>(launch<float>(c, s));
+  if (ca == kCa && cg == kCg) {
+    if (dtype == 1) return static_cast<int>(launch<bf16, kCa, kCg>(c, s));
+    if (dtype == 0) return static_cast<int>(launch<float, kCa, kCg>(c, s));
+  } else if (dtype == 1 && ca == 12 && cg == 48) {
+    return static_cast<int>(launch<bf16, 12, 48>(c, s));
+  } else if (dtype == 1 && ca == 24 && cg == 96) {
+    return static_cast<int>(launch<bf16, 24, 96>(c, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

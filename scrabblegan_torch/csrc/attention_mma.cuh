@@ -14,9 +14,10 @@
 //   (on an H100, 16 queries a warp with twice the warps measured 3-9% slower,
 //   and 256 queries a block, which halves what the blocks stage from L2, 1-2%
 //   slower).
-// - Scores: m16n8k8 bf16 (the contraction is exactly Ca = 8), float32
-//   accumulators; bf16 products are exact in float32. theta is the A operand,
-//   held in registers for the whole walk; phi is the B operand.
+// - Scores: m16n8k8 bf16, one k8 step for Ca = 8 (Ca = 12 is padded with
+//   zero channels to two steps, Ca = 24 takes three), float32 accumulators;
+//   bf16 products are exact in float32. theta is the A operand, held in
+//   registers for the whole walk; phi is the B operand.
 // - Softmax: the scores of a chunk of 32 keys stay in the accumulators'
 //   registers. The running max of a row moves at most once a chunk, and only
 //   when a score of the warp exceeds it by more than 8 in log2 units (the
@@ -30,9 +31,11 @@
 // - Value product: m16n8k16 bf16. The probabilities, rounded to bf16, are the
 //   A operand straight from the score accumulators' registers (the
 //   accumulator layout of m16n8 is the A layout of m16n8k16); g is the B
-//   operand, four n-tiles for Cg = 32, float32 accumulators.
+//   operand, Cg / 8 n-tiles (four for Cg = 32), float32 accumulators. At
+//   Cg = 96 a lane holds 96 accumulators; the kernels that walk at the wider
+//   widths ask for fewer blocks an SM, so registers do not spill.
 // - Shared memory: phi and g stay bf16, channel-major as they arrive
-//   ([40 channels][128 keys + 8 of padding], so ldmatrix rows fall in
+//   ([Ca + Cg channels][128 keys + 8 of padding], so ldmatrix rows fall in
 //   distinct banks), in key tiles of 128, double-buffered: the next tile
 //   loads with 16-byte cp.async under the current tile's math. gT's rows are
 //   the B layout of the value product as they are (ldmatrix); phi's channel
@@ -65,8 +68,8 @@ namespace attn {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kCa = 8;             // score channels (C / 8)
-constexpr int kCg = 32;            // value channels (C / 2)
+constexpr int kCa = 8;             // score channels (C / 8) of the ScrabbleGAN blocks
+constexpr int kCg = 32;            // value channels (C / 2) of the ScrabbleGAN blocks
 constexpr int kCt = kCa + kCg;     // channels staged per key
 constexpr int kThreads = 128;      // threads a block, either walk
 constexpr int kQb = 128;           // queries a block, either walk
@@ -81,6 +84,21 @@ constexpr float kSlack = 8.f;      // log2 units the running max may lag a row's
 constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kKt % kKs == 0, "a tile holds whole chunks");
+
+// The channel counts of one instance of the tensor-core kernels: CA score
+// channels, padded with zero channels to kCaP, a whole number of the k8 steps
+// of the score products (the padding is zeros in the theta fragments and zero
+// rows of phi in shared memory, so it adds nothing); CG value channels, a
+// whole number of the k16 steps of the value products. (8, 32) is the
+// ScrabbleGAN blocks', (12, 48) and (24, 96) BigGAN's D and G at 128 x 128.
+template <int CA, int CG>
+struct Widths {
+  static constexpr int kCaP = (CA + 7) / 8 * 8;  // score channels, padded
+  static constexpr int kKs = kCaP / 8;           // k8 steps of a score
+  static constexpr int kCt = kCaP + CG;          // rows a key tile stages
+  static constexpr int kNt = CG / 8;             // n8 tiles of the value channels
+  static_assert(CG % 16 == 0, "whole k16 steps of value channels");
+};
 static_assert(kQb == kThreads, "the float32 walk: a thread stages a key and owns a query");
 static_assert(kQb == kThreads / 32 * kWarpQ, "the mma walk: the warps' queries are the block's");
 static_assert(kQb == kKt, "an output tile reuses a key tile's rows");
@@ -148,6 +166,22 @@ __device__ __forceinline__ void mma_16808_add(float (&d)[4], const uint32_t (&a)
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
+// the same with the A fragment as two registers
+__device__ __forceinline__ void mma_16808(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%7, %7, %7, %7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "f"(0.f));
+}
+__device__ __forceinline__ void mma_16808_add(float (&d)[4], uint32_t a0, uint32_t a1,
+                                              uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
 // d += a b: (16 x 16) (16 x 8), bf16 operands, float32 sums
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -204,28 +238,48 @@ __device__ __forceinline__ void stage_rows(bf16 (*dst)[kRow], const bf16* src, i
   }
 }
 
-// one key tile: phi in rows 0..7, g in rows 8..39
+// one key tile: phi in rows 0..CA - 1, g in rows kCaP..kCaP + CG - 1 (rows 0..7
+// and 8..39 at the default widths); the padding rows between are left alone
+// (see `zero_rows`)
+template <int CA = kCa, int CG = kCg>
 __device__ __forceinline__ void stage_kv(bf16 (*dst)[kRow], const bf16* ph, const bf16* gg,
                                          int k_len, int k0, bool vec) {
-  stage_rows(dst, ph, kCa, k_len, k0, k_len, vec);
-  stage_rows(dst + kCa, gg, kCg, k_len, k0, k_len, vec);
+  stage_rows(dst, ph, CA, k_len, k0, k_len, vec);
+  stage_rows(dst + Widths<CA, CG>::kCaP, gg, CG, k_len, k0, k_len, vec);
   cp_async_commit();
 }
 
-// The walk of one warp's 32 queries over all keys. The caller has staged key
-// tile 0 into kv[0] (`stage_kv`); every thread of the block calls this, and
-// warps without a query (`warp_active` false) only stage and synchronise.
-// th[mt][h]: the A fragment of theta for the m16 tile mt, rows g + 8 h (g the
-// lane's group, lane / 4), channels 2 t, 2 t + 1 (t = lane % 4); kLog2Scores
-// says that log2(e) is already folded into it (the whole-block kernel's
-// weight), else the walk scales the float32 scores.
+// rows r0..r1 - 1 of `n` shared-memory tiles `stride` rows apart set to zero,
+// by every thread of the block: the score channels' padding, which no tile's
+// staging writes; read only after the walk's first __syncthreads
+__device__ __forceinline__ void zero_rows(bf16 (*tile)[kRow], int n, int stride, int r0, int r1) {
+  const int rows = r1 - r0;
+  for (int i = threadIdx.x; i < n * rows * kRow; i += kThreads) {
+    const int t = i / (rows * kRow), r = r0 + (i / kRow) % rows;
+    tile[t * stride + r][i % kRow] = __float2bfloat16(0.f);
+  }
+}
+
+// The walk of one warp's 32 queries over all keys, at the widths (CA, CG)
+// (`Widths`). The caller has staged key tile 0 into kv[0] (`stage_kv`) and, if
+// CA is padded, zeroed the padding rows of both buffers (`zero_rows`); every
+// thread of the block calls this, and warps without a query (`warp_active`
+// false) only stage and synchronise.
+// th[mt][2 ks + h]: the A fragment of theta's k8 step ks for the m16 tile mt,
+// rows g + 8 h (g the lane's group, lane / 4), channels 8 ks + 2 t, 8 ks + 2 t +
+// 1 (t = lane % 4), zero past CA; kLog2Scores says that log2(e) is already
+// folded into it (the whole-block kernel's weight), else the walk scales the
+// float32 scores.
 // acc[mt][ct][e]: row g + 8 (e / 2), channel 8 ct + 2 t + e % 2, undivided;
 // l[2 mt + h]: the row sums, reduced across the row's four lanes.
-template <bool kLog2Scores>
-__device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2], const bf16* ph,
-                                          const bf16* gg, int k_len, bool vec,
-                                          bf16 (*kv)[kCt][kRow], bool warp_active,
-                                          float (&acc)[kMt][4][4], float (&l)[2 * kMt]) {
+// The widths come from the last argument (a `Widths` tag), (8, 32) without it.
+template <bool kLog2Scores, int CA = kCa, int CG = kCg>
+__device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2 * Widths<CA, CG>::kKs],
+                                          const bf16* ph, const bf16* gg, int k_len, bool vec,
+                                          bf16 (*kv)[Widths<CA, CG>::kCt][kRow], bool warp_active,
+                                          float (&acc)[kMt][CG / 8][4], float (&l)[2 * kMt],
+                                          Widths<CA, CG> = {}) {
+  using W = Widths<CA, CG>;
   constexpr float unit = kLog2Scores ? 1.f : kLog2e;  // log2 units per unit of score
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
@@ -238,7 +292,7 @@ __device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2], const bf
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-    for (int ct = 0; ct < 4; ++ct)
+    for (int ct = 0; ct < W::kNt; ++ct)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][ct][e] = 0.f;
 
@@ -246,7 +300,7 @@ __device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2], const bf
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * kKt;
     if (it + 1 < tiles) {  // the next tile loads under this one's math
-      stage_kv(kv[(it + 1) & 1], ph, gg, k_len, k0 + kKt, vec);
+      stage_kv<CA, CG>(kv[(it + 1) & 1], ph, gg, k_len, k0 + kKt, vec);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -256,14 +310,24 @@ __device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2], const bf
       bf16(*cur)[kRow] = kv[it & 1];
       const int kn = min(kKt, k_len - k0);
       for (int j0 = 0; j0 < kn; j0 += kKs) {
-        // scores of 32 queries x 32 keys: four n-tiles of 8 keys
-        uint32_t pb[4];
-        ldmatrix_x4_trans(pb, &cur[lane & 7][j0 + (lane >> 3) * 8]);
+        // scores of 32 queries x 32 keys: four n-tiles of 8 keys, a k8 step
+        // of the channels at a time
+        uint32_t pb[W::kKs][4];
+#pragma unroll
+        for (int ks = 0; ks < W::kKs; ++ks)
+          ldmatrix_x4_trans(pb[ks], &cur[8 * ks + (lane & 7)][j0 + (lane >> 3) * 8]);
         float s[kMt][4][4];
 #pragma unroll
         for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_16808(s[mt][nt], th[mt], pb[nt]);
+          for (int nt = 0; nt < 4; ++nt) mma_16808(s[mt][nt], th[mt][0], th[mt][1], pb[0][nt]);
+#pragma unroll
+        for (int ks = 1; ks < W::kKs; ++ks)
+#pragma unroll
+          for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_16808_add(s[mt][nt], th[mt][2 * ks], th[mt][2 * ks + 1], pb[ks][nt]);
         if (j0 + kKs > kn) {  // keys past the end
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
@@ -302,7 +366,7 @@ __device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2], const bf
             m[r] = mn;
             l[r] *= scale;
 #pragma unroll
-            for (int ct = 0; ct < 4; ++ct) {
+            for (int ct = 0; ct < W::kNt; ++ct) {
               acc[mt][ct][2 * h] *= scale;
               acc[mt][ct][2 * h + 1] *= scale;
             }
@@ -328,9 +392,9 @@ __device__ __forceinline__ void kwalk_mma(const uint32_t (&th)[kMt][2], const bf
                 pa[mt][2 * nn + h] = pack_bf16(p0, p1);
               }
 #pragma unroll
-          for (int cp = 0; cp < 2; ++cp) {  // two channel tiles a load
+          for (int cp = 0; cp < CG / 16; ++cp) {  // two channel tiles a load
             uint32_t gb[4];
-            ldmatrix_x4(gb, &cur[kCa + (2 * cp + (lane >> 4)) * 8 + (lane & 7)]
+            ldmatrix_x4(gb, &cur[W::kCaP + (2 * cp + (lane >> 4)) * 8 + (lane & 7)]
                                 [j0 + 16 * kk + ((lane >> 3) & 1) * 8]);
 #pragma unroll
             for (int mt = 0; mt < kMt; ++mt) {

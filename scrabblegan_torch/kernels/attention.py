@@ -24,8 +24,8 @@ a dispatch-level count sees it (utils/flops.py). Registering builds nothing.
 Dispatch has no fallback: a CPU tensor takes the plain version, which
 autograd differentiates; a CUDA tensor goes through the ops, whose CUDA
 implementations launch the kernels or raise. `launches` and `bwd_launches`
-count kernel launches. The whole-block kernel of the 'fused'
-dataflow is in `kernels/fused_block.py`.
+count kernel launches, and `width_launches` counts them by width. The
+whole-block kernel of the 'fused' dataflow is in `kernels/fused_block.py`.
 
 The launch paths are capture-safe: they read nothing from the device
 (`backward_plan` works from the shapes and the SM count), launch on the
@@ -44,7 +44,12 @@ import torch
 from scrabblegan_torch.kernels.build import load_library
 
 LOG2E = 1.4426950408889634
-KERNEL_CA, KERNEL_CG = 8, 32  # the channel counts the kernel is written for
+KERNEL_CA, KERNEL_CG = 8, 32  # the ScrabbleGAN blocks' channel counts (C = 64)
+# (Ca, Cg) -> the operand dtypes the kernels take at those channel counts: one
+# template instance each in csrc/ (`Widths`); (12, 48) and (24, 96) are BigGAN's
+# D and G at 128 x 128 (C = 96 and 192), on the tensor cores only
+KERNEL_WIDTHS = {(KERNEL_CA, KERNEL_CG): (torch.float32, torch.bfloat16),
+                 (12, 48): (torch.bfloat16,), (24, 96): (torch.bfloat16,)}
 KEY_TILE, KEY_CHUNK = 128, 32  # csrc/attention_mma.cuh: kKt keys a tile, kKs a chunk
 WARP_QUERIES = 32  # csrc/attention_mma.cuh: kWarpQ queries a warp on the tensor cores
 MAX_SLACK = 8.0  # csrc/attention_mma.cuh: kSlack, log2 units the running max may lag by
@@ -65,6 +70,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0      # forward kernel launches since the last reset; the caller resets it
 bwd_launches = 0  # backward kernel launches (one per backward call), likewise
 bwd_dout_copies = 0  # backward calls whose cotangent had to be copied dense or cast first
+# the same two counts by width: 'attention.launches.<Ca>x<Cg>' and
+# 'attention.bwd_launches.<Ca>x<Cg>' for every width of KERNEL_WIDTHS
+WIDTH_COUNTERS = tuple(f"attention.{kind}.{ca}x{cg}" for ca, cg in KERNEL_WIDTHS
+                       for kind in ("launches", "bwd_launches"))
+width_launches = dict.fromkeys(WIDTH_COUNTERS, 0)
 
 
 def attention_reference(thetaT: torch.Tensor, phiT: torch.Tensor,
@@ -356,24 +366,32 @@ def _check_kernel_operands(*named: tuple[str, torch.Tensor]) -> None:
         raise ValueError(f"batch {named[0][1].shape[0]} exceeds the kernel grid's 65535")
 
 
+def check_kernel_widths(ca: int, cg: int, dtype: torch.dtype) -> None:
+    """Raises unless the kernels take (Ca, Cg) in `dtype` (KERNEL_WIDTHS):
+    there is no fall-back to the plain core."""
+    if dtype not in KERNEL_WIDTHS.get((ca, cg), ()):
+        taken = "; ".join(f"Ca={a}, Cg={g} ({', '.join(str(d).split('.')[-1] for d in ds)})"
+                          for (a, g), ds in KERNEL_WIDTHS.items())
+        raise ValueError(f"the CUDA kernels take {taken}; got Ca={ca}, Cg={cg} in {dtype}")
+
+
 def _launch_kernel(thetaT: torch.Tensor, phiT: torch.Tensor,
                    gT: torch.Tensor) -> torch.Tensor:
     global launches
     b, ca, q = thetaT.shape
     cg, k = gT.shape[1], gT.shape[2]
-    if (ca, cg) != (KERNEL_CA, KERNEL_CG):
-        raise ValueError(f"the CUDA kernel takes Ca={KERNEL_CA}, Cg={KERNEL_CG}; "
-                         f"got Ca={ca}, Cg={cg}")
+    check_kernel_widths(ca, cg, thetaT.dtype)
     _check_kernel_operands(("thetaT", thetaT), ("phiT", phiT), ("gT", gT))
     lib = load_library()
     out = torch.empty((b, cg, q), dtype=thetaT.dtype, device=thetaT.device)
     err = lib.attention_fwd(
         thetaT.data_ptr(), phiT.data_ptr(), gT.data_ptr(), out.data_ptr(), b, q, k,
-        thetaT.stride(0), phiT.stride(0), gT.stride(0), _DTYPE_CODE[thetaT.dtype],
+        thetaT.stride(0), phiT.stride(0), gT.stride(0), ca, cg, _DTYPE_CODE[thetaT.dtype],
         thetaT.device.index, torch.cuda.current_stream(thetaT.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed with CUDA error {err}")
     launches += 1
+    width_launches[f"attention.launches.{ca}x{cg}"] += 1
     return out
 
 
@@ -391,9 +409,7 @@ def _launch_backward(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
     global bwd_launches, bwd_dout_copies
     b, ca, q = thetaT.shape
     cg, k = gT.shape[1], gT.shape[2]
-    if (ca, cg) != (KERNEL_CA, KERNEL_CG):
-        raise ValueError(f"the CUDA kernel takes Ca={KERNEL_CA}, Cg={KERNEL_CG}; "
-                         f"got Ca={ca}, Cg={cg}")
+    check_kernel_widths(ca, cg, thetaT.dtype)
     if doutT.shape != (b, cg, q) or doutT.device != thetaT.device:
         raise ValueError(f"doutT {tuple(doutT.shape)} on {doutT.device} does not match "
                          f"the output (B, Cg, Q) = {(b, cg, q)} on {thetaT.device}")
@@ -421,11 +437,12 @@ def _launch_backward(thetaT: torch.Tensor, phiT: torch.Tensor, gT: torch.Tensor,
         *(scratch.data_ptr() + 4 * at for at in starts),
         planes.data_ptr() if planes is not None else None,
         b, q, k, thetaT.stride(0), phiT.stride(0), gT.stride(0), doutT.stride(0),
-        plan["query_warps"], plan["tiles_per_split"],
+        plan["query_warps"], plan["tiles_per_split"], ca, cg,
         _DTYPE_CODE[thetaT.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed with CUDA error {err}")
     bwd_launches += 1
+    width_launches[f"attention.bwd_launches.{ca}x{cg}"] += 1
     return d_thetaT, d_phiT, d_gT
 
 
@@ -492,8 +509,9 @@ def nonlocal_attention_packed(thetaT: torch.Tensor, phiT: torch.Tensor,
                               gT: torch.Tensor) -> torch.Tensor:
     """thetaT (B, Ca, Q), phiT (B, Ca, K), gT (B, Cg, K) -> outT (B, Cg, Q).
 
-    On CUDA the kernels, which take Ca=8, Cg=32 and operands whose per-batch
-    (C, N) blocks are dense (a channel slice of a wider projection is fine):
+    On CUDA the kernels, which take the widths of KERNEL_WIDTHS (raising on
+    any other) and operands whose per-batch (C, N) blocks are dense (a
+    channel slice of a wider projection is fine):
     through `AttentionCore` where a gradient is wanted, else the forward op
     alone. On the CPU the plain version: differentiated by autograd where a
     gradient is wanted, else through the op's CPU implementation."""

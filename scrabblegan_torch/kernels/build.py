@@ -38,9 +38,9 @@ def find_nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, i, i, p]
+    lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, ll, ll, ll, i, i, i, i, p]
     lib.attention_fwd.restype = i
-    lib.attention_bwd.argtypes = [p] * 12 + [i, i, i, ll, ll, ll, ll, i, i, i, i, p]
+    lib.attention_bwd.argtypes = [p] * 12 + [i, i, i, ll, ll, ll, ll, i, i, i, i, i, i, p]
     lib.attention_bwd.restype = i
     lib.attention_bwd_floor.argtypes = [i, i, p]
     lib.attention_bwd_floor.restype = i

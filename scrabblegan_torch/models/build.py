@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from scrabblegan_torch.config import Config, load_config
+from scrabblegan_torch.config import BigGANConfig, Config, load_config
 from scrabblegan_torch import resolve_device
 from scrabblegan_torch.models.discriminator import DCGANDiscriminator, Discriminator
 from scrabblegan_torch.models.generator import Generator
@@ -79,11 +79,18 @@ def build_generator(cfg: Config, device: str | torch.device = "cpu") -> Generato
     return _generator(cfg, resolve_device(device)).eval()
 
 
-def build_models(cfg: Config, device: str | torch.device = "cpu") -> ModelBundle:
+def build_models(cfg: Config, device: str | torch.device = "cpu",
+                 biggan: BigGANConfig | None = None):
     """The four networks in train mode, with zero weights: load them with
     `scrabblegan_torch.convert` or fill them with `train.state`'s
-    initialisers."""
+    initialisers. With `biggan` (a config file's "biggan" section,
+    `config.load_biggan`) BigGAN's G and D instead
+    (models/biggan.py `ClassBundle`)."""
     dev = resolve_device(device)
+    if biggan is not None:
+        from scrabblegan_torch.models.biggan import build_biggan
+
+        return build_biggan(cfg, biggan, dev)
     trunk = _dtype(cfg, "trunk_dtype", cfg.shared.trunk_dtype or cfg.shared.dtype)
     use_sn = cfg.shared.kernel_reg == "spectral_norm"
     c = cfg.io.input_dim[2]

@@ -14,6 +14,13 @@ momentum 0.99, eps 1e-5).
   (parallel/mesh.py `global_moments`), so every rank commits the same
   statistics. `F.batch_norm(training=True)` is not used: it updates the running
   variance with the unbiased variance, in place, on every call.
+
+BigGAN's blocks (models/biggan.py) take the same classes through options:
+a batch norm `momentum` (BigGAN's PyTorch momentum 0.1 is flax's 0.9), a
+CBN gain of 1 + the gamma layer (`gain_offset`), an up-block that upsamples
+by nearest neighbours before plain SN convs (`upsample='nearest'`), and a
+down-block without the first ReLU whose skip pools before its conv
+(`preactivation=False`) or is the identity (`learnable_skip=False`).
 """
 
 from __future__ import annotations
@@ -59,8 +66,9 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor | None = None,
 class _BatchNormStats(nn.Module):
     """The running statistics of a batch norm and its normalisation."""
 
-    def __init__(self, features: int, device=None):
+    def __init__(self, features: int, device=None, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
@@ -72,16 +80,16 @@ class _BatchNormStats(nn.Module):
         with torch.no_grad():
             propose_stats(
                 self,
-                running_mean=BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean,
-                running_var=BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+                running_mean=self.momentum * self.running_mean + (1 - self.momentum) * mean,
+                running_var=self.momentum * self.running_var + (1 - self.momentum) * var)
         return y
 
 
 class BatchNorm(_BatchNormStats):
     """flax nn.BatchNorm with scale and bias."""
 
-    def __init__(self, features: int, device=None):
-        super().__init__(features, device)
+    def __init__(self, features: int, device=None, momentum: float = BN_MOMENTUM):
+        super().__init__(features, device, momentum)
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
@@ -97,11 +105,14 @@ class BatchNorm(_BatchNormStats):
 
 class ConditionalBatchNorm(_BatchNormStats):
     """Non-affine batch norm, then gamma and beta from SN-Dense layers on the
-    conditioning vector: h * gamma + beta, per channel."""
+    conditioning vector: h * (gain_offset + gamma) + beta, per channel
+    (`gain_offset` 1 is BigGAN's gain)."""
 
     def __init__(self, features: int, cond_features: int, use_sn: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(features, device)
+                 dtype: torch.dtype = torch.float32, device=None,
+                 momentum: float = BN_MOMENTUM, gain_offset: float = 0.0):
+        super().__init__(features, device, momentum)
+        self.gain_offset = gain_offset
         self.gamma = SNDense(cond_features, features, use_sn=use_sn, dtype=dtype,
                              device=device)
         self.beta = SNDense(cond_features, features, use_sn=use_sn, dtype=dtype,
@@ -115,6 +126,8 @@ class ConditionalBatchNorm(_BatchNormStats):
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         h = self.normalize(x)
         gamma = self.gamma(cond)[:, :, None, None]
+        if self.gain_offset:
+            gamma = gamma + self.gain_offset
         beta = self.beta(cond)[:, :, None, None]
         return h * gamma + beta
 
@@ -122,25 +135,40 @@ class ConditionalBatchNorm(_BatchNormStats):
 class ResNetBlockUp(nn.Module):
     """CBN -> relu -> 3x3 transposed conv -> CBN -> relu -> 3x3 conv, plus a
     1x1 transposed-conv skip. Strides (2, 2), or (2, 1) on the last block, so
-    that the generator's width is 16 px per character."""
+    that the generator's width is 16 px per character.
+
+    `upsample='nearest'` is BigGAN's GBlock: a 2x nearest-neighbour upsample
+    of both paths, then `upconv` and `skip` are plain 3x3 and 1x1 SN convs.
+    `cbn` holds further options of both CBNs (momentum, gain_offset)."""
 
     def __init__(self, in_features: int, features: int, cond_features: int,
                  is_last_block: bool = False, use_sn: bool = True,
                  conv_lowering: str = "dilated", dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, upsample: str = "transpose", cbn: dict | None = None):
         super().__init__()
+        if upsample not in ("transpose", "nearest"):
+            raise ValueError(f"Unknown upsample {upsample!r}")
+        self.upsample = upsample
         strides = (2, 1) if is_last_block else (2, 2)
         kw = dict(use_sn=use_sn, dtype=dtype, device=device)
-        self.cbn1 = ConditionalBatchNorm(in_features, cond_features, **kw)
-        self.upconv = SNConvTranspose(in_features, features, (3, 3), strides,
-                                      lowering=conv_lowering, **kw)
-        self.cbn2 = ConditionalBatchNorm(features, cond_features, **kw)
+        self.cbn1 = ConditionalBatchNorm(in_features, cond_features, **kw, **(cbn or {}))
+        if upsample == "nearest":
+            self.upconv = SNConv(in_features, features, (3, 3), **kw)
+        else:
+            self.upconv = SNConvTranspose(in_features, features, (3, 3), strides,
+                                          lowering=conv_lowering, **kw)
+        self.cbn2 = ConditionalBatchNorm(features, cond_features, **kw, **(cbn or {}))
         self.conv = SNConv(features, features, (3, 3), **kw)
-        self.skip = SNConvTranspose(in_features, features, (1, 1), strides,
-                                    lowering=conv_lowering, **kw)
+        if upsample == "nearest":
+            self.skip = SNConv(in_features, features, (1, 1), **kw)
+        else:
+            self.skip = SNConvTranspose(in_features, features, (1, 1), strides,
+                                        lowering=conv_lowering, **kw)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.cbn1(x, cond))
+        if self.upsample == "nearest":
+            h, x = (F.interpolate(t, scale_factor=2, mode="nearest") for t in (h, x))
         h = self.upconv(h)
         h = torch.relu(self.cbn2(h, cond))
         h = self.conv(h)
@@ -152,18 +180,26 @@ class ResNetBlockDown(nn.Module):
     1x1 SN conv skip with the same pool; no pool on the last block. No
     normalisation, like BigGAN's D blocks.
 
+    BigGAN's first D block (`preactivation=False`) has no first relu and its
+    skip pools before the conv; its last (`learnable_skip=False`, no pool)
+    adds its input as it is.
+
     flax's 'SAME' 2x2/2 average pool equals `F.avg_pool2d(2)` on even heights
     and widths, which is every shape the networks give it; an odd one
     raises rather than silently pooling differently."""
 
     def __init__(self, in_features: int, features: int, is_last_block: bool = False,
-                 use_sn: bool = True, dtype: torch.dtype = torch.float32, device=None):
+                 use_sn: bool = True, dtype: torch.dtype = torch.float32, device=None,
+                 preactivation: bool = True, learnable_skip: bool = True):
         super().__init__()
+        if not learnable_skip and (in_features != features or not is_last_block):
+            raise ValueError("an identity skip needs as many features out as in and no pool")
         kw = dict(use_sn=use_sn, dtype=dtype, device=device)
         self.is_last_block = is_last_block
+        self.preactivation = preactivation
         self.conv1 = SNConv(in_features, features, (3, 3), **kw)
         self.conv2 = SNConv(features, features, (3, 3), **kw)
-        self.skip = SNConv(in_features, features, (1, 1), **kw)
+        self.skip = SNConv(in_features, features, (1, 1), **kw) if learnable_skip else None
 
     def _pool(self, h: torch.Tensor) -> torch.Tensor:
         if self.is_last_block:
@@ -174,6 +210,10 @@ class ResNetBlockDown(nn.Module):
         return F.avg_pool2d(h, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(torch.relu(x))
+        h = self.conv1(torch.relu(x) if self.preactivation else x)
         h = self.conv2(torch.relu(h))
-        return self._pool(h) + self._pool(self.skip(x))
+        if self.skip is None:
+            return self._pool(h) + x
+        if self.preactivation:
+            return self._pool(h) + self._pool(self.skip(x))
+        return self._pool(h) + self.skip(self._pool(x))

@@ -296,6 +296,21 @@ class SNDense(_SNLayer):
                           self.cast_bias(), 0, -1)
 
 
+class SNEmbedding(_SNLayer):
+    """A lookup table (num_embeddings, features), spectrally normalised over
+    the whole table as BigGAN's SNEmbedding is (its u has num_embeddings
+    entries); `use_sn=False` is a plain embedding. Rows are gathered from the
+    normalised table in the compute dtype."""
+
+    def __init__(self, num_embeddings: int, features: int, use_sn: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__((num_embeddings, features), num_embeddings, False, use_sn, dtype,
+                         device)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return F.embedding(y, self.normalized_weight())
+
+
 class Dense(SNDense):
     """flax `nn.Dense` as the recognizer uses it: bias, no spectral norm,
     lecun-normal kernel."""

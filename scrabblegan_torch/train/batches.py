@@ -191,3 +191,40 @@ class Batches:
         batch["real_lengths"] = np.full((bsz,), real_len, np.int32)
         batch["fake_lengths"] = np.full((bsz,), fake_len, np.int32)
         return batch
+
+
+class ClassBatches:
+    """BigGAN's host-side batches from a class-labelled image set
+    (data/classes.py): each step `batch_size` real images and their labels,
+    drawn without replacement through a seeded permutation of the rows
+    (a fresh one each pass), fake labels uniform over `n_classes` and z
+    (batch, dim_z) ~ N(0, I), all from one `np.random.default_rng(seed)`, so
+    a seed gives the same stream. `next_chunk(k)` stacks k steps' batches:
+    real_imgs (k, B, H, W, 3) uint8, real_labels and fake_labels (k, B)
+    int64, z (k, B, dim_z) float32."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int,
+                 n_classes: int, dim_z: int, seed: int):
+        if len(images) < batch_size:
+            raise ValueError(f"{len(images)} rows cannot fill a batch of {batch_size}")
+        self.images, self.labels = images, labels
+        self.batch_size, self.n_classes, self.dim_z = batch_size, n_classes, dim_z
+        self.rng = np.random.default_rng([seed % (2 ** 63), 2])
+        self._order = np.empty(0, dtype=np.int64)
+
+    def _rows(self) -> np.ndarray:
+        if len(self._order) < self.batch_size:
+            self._order = self.rng.permutation(len(self.images))
+        rows, self._order = self._order[:self.batch_size], self._order[self.batch_size:]
+        return np.sort(rows)
+
+    def next_batch(self) -> dict[str, np.ndarray]:
+        rows = self._rows()
+        b = self.batch_size
+        return {"real_imgs": self.images[rows], "real_labels": self.labels[rows],
+                "fake_labels": self.rng.integers(0, self.n_classes, b, dtype=np.int64),
+                "z": self.rng.standard_normal((b, self.dim_z), dtype=np.float32)}
+
+    def next_chunk(self, k: int) -> dict[str, np.ndarray]:
+        batches = [self.next_batch() for _ in range(k)]
+        return {key: np.stack([b[key] for b in batches]) for key in batches[0]}

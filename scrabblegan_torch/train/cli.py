@@ -48,6 +48,13 @@ writes G's live weights as the .npz that `infer --weights` serves. The
 'r' and 'w', each {"params", "batch_stats"}, joined with '.' as
 `convert.save_flax_npz` writes them.
 
+BigGAN (a config with a "biggan" section, configs/biggan128.json) trains
+in the steps mode, in one process: G and D from BigGAN's initialisation on
+class-labelled images from `--data images.npz` (uint8 (N, H, W, 3) and int
+labels) or a seeded synthetic set, through the prefetching class feed
+(train/classes.py); the same loop, metrics, steps/s and checkpoint, no
+exports. On a card both print the peak device memory at the end.
+
 Parallel runs (both modes): under `torchrun --nproc-per-node N` every rank
 joins the process group (`--dist-backend nccl` on cards, one a rank, the
 default with --device cuda; `gloo` on the CPU, its default there, or for
@@ -72,7 +79,7 @@ import numpy as np
 import torch
 
 from scrabblegan_torch import resolve_device
-from scrabblegan_torch.config import load_config, save_config
+from scrabblegan_torch.config import load_biggan, load_config, save_config
 from scrabblegan_torch.convert import load_flax_npz, save_flax_npz, state_from_flax, to_flax
 from scrabblegan_torch.data.synthetic import synthetic_batch, synthetic_feed, synthetic_noise
 from scrabblegan_torch.parallel import prepare_state
@@ -80,6 +87,7 @@ from scrabblegan_torch.parallel.fsdp import unsharded
 from scrabblegan_torch.parallel.mesh import (barrier, broadcast_object, init_distributed,
                                              is_rank0, mesh_for)
 from scrabblegan_torch.train import checkpoint
+from scrabblegan_torch.train.classes import SKIPPED, class_data, class_feed
 from scrabblegan_torch.train.standing import export_models
 from scrabblegan_torch.train.state import create_train_state
 from scrabblegan_torch.train.step import METRIC_NAMES, make_chunked_train_step
@@ -125,6 +133,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-resume", action="store_true",
                    help="start from the initial state even if --workdir holds a checkpoint")
     p.add_argument("--export-g", default=None, help="write G's live weights to this .npz")
+    p.add_argument("--data", default=None,
+                   help="BigGAN: an .npz of uint8 images (N, H, W, 3) and int labels "
+                        "(default: a seeded synthetic set)")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                    help="the process group's backend under torchrun (default nccl with "
                         "--device cuda, gloo with --device cpu); gloo for several ranks "
@@ -197,12 +208,36 @@ def main(argv=None) -> int:
         torch.distributed.destroy_process_group()
 
 
+def word_batches(cfg, batch_size: int, length: int, seed: int, step: int, n: int):
+    """The batches and z of steps step+1..step+n, stacked: step s's from a
+    generator seeded with (seed, s)."""
+    drawn = []
+    for i in range(n):
+        rng = np.random.default_rng([seed, step + i])
+        drawn.append((synthetic_batch(cfg, batch_size, length, rng),
+                      synthetic_noise(cfg, batch_size, rng)))
+    batches = {key: np.stack([b[key] for b, _ in drawn]) for key in drawn[0][0]}
+    return batches, None if drawn[0][1] is None else torch.stack([z for _, z in drawn])
+
+
 def run(args, cfg, device) -> int:
+    biggan = load_biggan(None if args.config in (None, "none") else args.config)
+    if biggan is not None and (args.steps is None or "WORLD_SIZE" in os.environ or args.init
+                               or args.export_g or args.length):
+        print("BigGAN trains --steps N in one process; --init, --export-g, --length and "
+              "the Trainer mode are ScrabbleGAN's", file=sys.stderr)
+        return 2
+    if biggan is None and args.data:
+        print("--data is BigGAN's: this config has no \"biggan\" section", file=sys.stderr)
+        return 2
     if args.steps is None:
         return train_epochs(args, cfg, device)
     say = print if is_rank0() else (lambda *a, **k: None)
     length = args.length or 5
-    if args.init:
+    if biggan is not None:
+        print(SKIPPED, flush=True)
+        state = create_train_state(cfg, args.seed, device, biggan)
+    elif args.init:
         tree = load_flax_npz(args.init)
         state = state_from_flax(cfg, {n: tree[n]["params"] for n in "gdrw"},
                                 {n: tree[n].get("batch_stats", {}) for n in "gdrw"}, device)
@@ -224,38 +259,46 @@ def run(args, cfg, device) -> int:
     chunk = make_chunked_train_step(cfg, state.models, mesh=mesh)
     k = max(1, int(cfg.parallel.steps_per_call))
     batch_size = args.batch_size or cfg.shared.batch_size
+    feed = None if biggan is None else class_feed(
+        cfg, biggan, *class_data(biggan, args.data, args.seed), batch_size,
+        args.seed + state.step, args.steps, device)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     ranks = "" if mesh is None else f", eager over {mesh.shape} ranks ({mesh.backend})"
     say(f"{args.steps} steps on {device} ({where}), batch {batch_size}, "
         f"{cfg.parallel.shape_mode}, {k} a call{ranks}", flush=True)
     t0, timed, done = time.perf_counter(), 0, 0
-    while done < args.steps:
-        n = min(k, args.steps - done)
-        drawn = []
-        for i in range(n):
-            rng = np.random.default_rng([args.seed, state.step + i])
-            drawn.append((synthetic_batch(cfg, batch_size, length, rng),
-                          synthetic_noise(cfg, batch_size, rng)))
-        batches = {key: np.stack([b[key] for b, _ in drawn]) for key in drawn[0][0]}
-        z = None if drawn[0][1] is None else torch.stack([z for _, z in drawn])
-        marks = graph_marks(chunk)
-        rows = chunk(state, batches, z).T.tolist()  # one fetch a call
-        for i, values in enumerate(rows):
-            say(f"step {state.step - n + i + 1}: " + " ".join(
-                f"{name}={v:.4f}" for name, v in zip(METRIC_NAMES, values)), flush=True)
-        done += n
-        if done == n or graph_marks(chunk) != marks:
-            t0, timed = time.perf_counter(), 0  # the kernels' build, warm-up steps, a capture
-        else:
-            timed += n
+    try:
+        while done < args.steps:
+            n = min(k, args.steps - done)
+            batches, z = ((feed.get(), None) if feed is not None else
+                          word_batches(cfg, batch_size, length, args.seed, state.step, n))
+            marks = graph_marks(chunk)
+            rows = chunk(state, batches, z).T.tolist()  # one fetch a call
+            for i, values in enumerate(rows):
+                say(f"step {state.step - n + i + 1}: " + " ".join(
+                    f"{name}={v:.4f}" for name, v in zip(METRIC_NAMES, values)), flush=True)
+            done += n
+            if done == n or graph_marks(chunk) != marks:
+                t0, timed = time.perf_counter(), 0  # the kernels' build, warm-up steps, a capture
+            else:
+                timed += n
+    finally:
+        if feed is not None:
+            feed.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timed:
         say(f"{timed / (time.perf_counter() - t0):.3f} steps/s over the {timed} steps after "
             f"the first call, the warm-up steps and the capture", flush=True)
+    if device.type == "cuda":
+        say(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB "
+            f"(max_memory_allocated), {torch.cuda.max_memory_reserved(device) / 2 ** 30:.2f} "
+            f"GiB reserved", flush=True)
     if args.workdir and cfg.io.ckpt_every > 0:
         say(f"saved checkpoint {checkpoint.save_state(ckpt_dir, state, state.step)}",
             flush=True)
+    if biggan is not None:
+        return 0
     with unsharded(state):  # a parallel run: whole on every rank, rank 0 writes
         if args.workdir and is_rank0():
             feed = synthetic_feed(cfg, batch_size, length, seed=args.seed + 1)

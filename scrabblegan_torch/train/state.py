@@ -67,6 +67,11 @@ class TrainState:
         if self.dropout_seed is None:
             self.dropout_seed = torch.zeros((), dtype=torch.int64, device=device)
 
+    @property
+    def nets(self) -> str:
+        """The networks the state holds: NETWORKS, or 'gd' for BigGAN."""
+        return NETWORKS[:len(self.models.items())]
+
     def params(self, net: str) -> list[torch.Tensor]:
         return list(self.modules()[net].parameters())
 
@@ -80,7 +85,7 @@ def new_train_state(cfg: Config, models: ModelBundle) -> TrainState:
     opts = make_optimizers(cfg)
     state = TrainState(models, {})
     state.opt_states = {net: opts[net].init([p.detach() for p in state.params(net)])
-                        for net in NETWORKS}
+                        for net in state.nets}
     if cfg.optimizer.g_ema_decay > 0:
         state.g_ema = [p.detach().clone() for p in state.params("g")]
     return state
@@ -142,13 +147,20 @@ def init_variables(module: torch.nn.Module, seed: int) -> dict:
                       for path, _, leaf in flax_leaves(module)}, seed)
 
 
-def create_train_state(cfg: Config, seed: int = 0,
-                       device: str | torch.device = "cpu") -> TrainState:
+def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = "cpu",
+                       biggan=None) -> TrainState:
     """A fresh train state for `cfg`, every network initialised as flax
     initialises it (see the module docstring), one seed per network; the
-    dropout stream seeded with `seed`."""
-    models = build_models(cfg, resolve_device(device))
+    dropout stream seeded with `seed`. With `biggan` (config.BigGANConfig)
+    BigGAN's G and D, initialised as BigGAN initialises them
+    (models/biggan.py `init_biggan`)."""
+    models = build_models(cfg, resolve_device(device), biggan)
     for idx, (_, module) in enumerate(models.items()):
+        if biggan is not None:
+            from scrabblegan_torch.models.biggan import init_biggan
+
+            init_biggan(module, seed * len(NETWORKS) + idx)
+            continue
         load_flax(module, init_variables(module, seed * len(NETWORKS) + idx))
         init_power_iteration(module)
     state = new_train_state(cfg, models)

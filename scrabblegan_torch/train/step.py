@@ -33,6 +33,14 @@ where no statistics record is open, so the recompute proposes nothing and
 the statistics are G's first pass's (the power iteration recomputes from
 the same stored u).
 
+BigGAN (a `models.biggan.ClassBundle`: G and D alone) takes the same body
+with class labels: the batch holds real_labels and fake_labels (B,) and its
+z (B, dim_z), which the feed draws; G runs on (fake_labels, z), D on
+(images, labels) for real, for fake detached and frozen for G's loss; the
+loss is the hinge pair and G and D update as above (`shared.remat`
+included). The phases are g.fwd, d.fwd, losses and the same backward,
+stats, update and ema; it has no parallel mode.
+
 One body serves every path (`make_step_body`): its inputs are device
 tensors, it reads and writes nothing on the host, and it updates the state
 in place, the optimizers' counts and moments included (train/optim.py). The
@@ -78,6 +86,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from scrabblegan_torch.config import Config
+from scrabblegan_torch.models.biggan import ClassBundle
 from scrabblegan_torch.models.build import ModelBundle
 from scrabblegan_torch.ops.balance import balanced_fanout, gradient_balance
 from scrabblegan_torch.ops.ctc import ctc_loss
@@ -192,9 +201,23 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
     remat = cfg.shared.remat
     opts = make_optimizers(cfg)
     device = next(models.generator.parameters()).device
+    class_cond = isinstance(models, ClassBundle)
+    if class_cond and mesh is not None:
+        raise NotImplementedError("BigGAN's step runs in one process: no parallel mode")
 
-    def g_forward(G, labels, z, lengths, style_imgs):
+    def g_forward(G, labels, z, lengths=None, style_imgs=None):
+        if class_cond:
+            return G(labels, z).float()
         return G(labels, z, lengths, style_imgs=style_imgs).float()
+
+    def g_pass(G, *g_args):
+        """G's own pass, recomputed in the backward under `shared.remat`."""
+        if not remat:
+            return g_forward(G, *g_args)
+        step_ctx = current()  # re-entered for the recompute, on the backward's thread
+        return checkpoint(
+            g_forward, G, *g_args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(), use_step(step_ctx)))
 
     data_rank = 0 if mesh is None else mesh.rank("data")
 
@@ -228,14 +251,8 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
         g_args = (fake_labels, None if style_z else z, fake_lengths if padded else None,
                   style_imgs if style_z else None)
         mark("g.fwd")
-        with record_stats() as g_stats:
-            if remat:  # the backward recomputes G's activations, outside any record
-                step_ctx = current()  # re-entered for the recompute, on the backward's thread
-                gen_imgs = checkpoint(
-                    g_forward, G, *g_args, use_reentrant=False, preserve_rng_state=False,
-                    context_fn=lambda: (contextlib.nullcontext(), use_step(step_ctx)))
-            else:
-                gen_imgs = g_forward(G, *g_args)
+        with record_stats() as g_stats:  # a remat recompute runs outside any record
+            gen_imgs = g_pass(G, *g_args)
         if grad_norm_balance:
             gen_for_adv, gen_for_ctc = balanced_fanout(gen_imgs, o.balance_alpha)
         else:
@@ -332,6 +349,32 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
         total = means[0] + means[1] + means[2] + means[3]
         return total, metrics, (g_stats, d_stats, r_stats, w_stats)
 
+    def class_forward_losses(inputs: Mapping[str, torch.Tensor], nets: _Nets):
+        """BigGAN's G + D forwards and losses (see the module's text)."""
+        G, D = nets.live("g"), nets.live("d")
+        real_imgs = normalize_images(inputs["real_imgs"], device)
+        real_labels = inputs["real_labels"].long()
+        fake_labels = inputs["fake_labels"].long()
+        mark("g.fwd")
+        with record_stats() as g_stats:
+            gen_imgs = g_pass(G, fake_labels, inputs["z"].float())
+        gen_sg = gen_imgs.detach()
+        if marking():
+            gen_imgs.register_hook(lambda grad: mark("backward.g"))
+        mark("d.fwd")
+        with record_stats() as d_stats:
+            d_real = D(real_imgs, real_labels)
+        d_fake_for_d = D(gen_sg, fake_labels)
+        d_fake_for_g = nets.frozen("d")(gen_imgs, fake_labels)
+        mark("losses")
+        d_loss, d_loss_real, d_loss_fake = disc_loss_fn(d_real, d_fake_for_d)
+        g_loss = gen_loss_fn(d_fake_for_g)
+        zero = torch.zeros((), device=device)
+        values = (d_loss, d_loss_real, d_loss_fake, zero, zero, zero, g_loss, g_loss, zero,
+                  g_loss, 0.0, zero, zero, zero, zero, zero)
+        metrics = torch.stack([metric(v) for v in values])
+        return d_loss.mean() + g_loss.mean(), metrics, (g_stats, d_stats)
+
     def parallel_forward_backward(state: TrainState, inputs, z, drop_key) -> tuple:
         layout = state.layout
         if layout is None or layout.mesh is not mesh:
@@ -353,7 +396,11 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
              z: torch.Tensor | None = None) -> torch.Tensor:
         mark("step.inputs")
         drop_key = step_key(state.dropout_seed, state.step_t) if my_rec else None
-        if mesh is None:
+        if class_cond:
+            total, metrics, records = class_forward_losses(inputs, _Nets(models))
+            mark("backward.drw")
+            total.backward()
+        elif mesh is None:
             total, metrics, records = forward_losses(inputs, z, drop_key, _Nets(models))
             mark("backward.drw")
             total.backward()
@@ -365,7 +412,7 @@ def make_step_body(cfg: Config, models: ModelBundle, mesh=None):
         # JAX's lax.cond on the cadence; its static fast path at disc_iters == 1
         take_g = None if o.disc_iters == 1 else (state.step_t + 1) % o.disc_iters == 0
         mark("update")
-        for net in NETWORKS:
+        for net in state.nets:
             params = state.params(net)
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             take = take_g if net == "g" else None

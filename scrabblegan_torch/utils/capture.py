@@ -6,9 +6,10 @@ kernels' launch counters kept exact under replay.
   stall watchdog's probe) takes it first, since a device-wide
   synchronisation during a capture would invalidate it.
 - The hand-written kernels count their launches (`kernels/attention.py`,
-  `kernels/fused_block.py`). A capture launches nothing, so the counts it
-  added are taken back (`add_counts(counts, -1)`) and added again on every
-  replay (`add_counts(counts)`).
+  the attention's also by width, and `kernels/fused_block.py`). A capture
+  launches nothing, so the counts it added are taken back
+  (`add_counts(counts, -1)`) and added again on every replay
+  (`add_counts(counts)`).
 """
 
 from __future__ import annotations
@@ -24,9 +25,14 @@ COUNTERS = ((attention, "launches"), (attention, "bwd_launches"),
 
 
 def counter_values() -> tuple[int, ...]:
-    return tuple(getattr(module, name) for module, name in COUNTERS)
+    """COUNTERS' values, then the attention launches by width
+    (`attention.WIDTH_COUNTERS`)."""
+    return (tuple(getattr(module, name) for module, name in COUNTERS)
+            + tuple(attention.width_launches[key] for key in attention.WIDTH_COUNTERS))
 
 
 def add_counts(counts: tuple[int, ...], sign: int = 1) -> None:
     for (module, name), n in zip(COUNTERS, counts):
         setattr(module, name, getattr(module, name) + sign * n)
+    for key, n in zip(attention.WIDTH_COUNTERS, counts[len(COUNTERS):]):
+        attention.width_launches[key] += sign * n

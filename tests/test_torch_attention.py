@@ -191,3 +191,18 @@ def test_cuda_requests_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load_library.__wrapped__()
+
+
+@pytest.mark.parametrize("ca,cg", [(12, 48), (24, 96)])
+@pytest.mark.parametrize("q,k", [(512, 128), (300, 75)])
+def test_emulation_at_biggan_widths_matches_the_plain_core(ca, cg, q, k):
+    """The forward walk's emulation at BigGAN's widths (D's 12/48, G's 24/96;
+    Ca = 12 padded to two k8 steps on the card, which adds zeros) against
+    the plain core, in bfloat16 at its 2e-2 tolerance."""
+    gen = torch.Generator().manual_seed(q + ca)
+    th, ph, g = (torch.randn(2, c, n, generator=gen).bfloat16()
+                 for c, n in ((ca, q), (ca, k), (cg, k)))
+    got = attention.attention_tiled_emulation(th, ph, g)
+    want = attention.attention_reference(th, ph, g)
+    assert got.shape == want.shape == (2, cg, q) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=2e-2, atol=2e-2)

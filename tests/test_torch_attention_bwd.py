@@ -224,3 +224,19 @@ def test_backward_wrapper_checks_before_launching():
     with pytest.raises(ValueError, match="Ca=8"):
         attention._launch_backward(th.repeat(1, 2, 1), ph.repeat(1, 2, 1), g, d)
     assert attention.bwd_launches == before
+
+
+@pytest.mark.parametrize("ca,cg", [(12, 48), (24, 96)])
+@pytest.mark.parametrize("b,q,k", [(2, 512, 128), (2, 300, 75), (3, 128, 129)])
+def test_emulation_at_biggan_widths_matches_the_plain_backward(ca, cg, b, q, k):
+    """The backward kernels' emulation at BigGAN's widths (three k16 steps of
+    dA at Cg = 48, dtheta and dphi over the padded k8 steps at Ca = 12)
+    against the plain backward, in bfloat16 at its 2e-2 tolerance."""
+    gen = torch.Generator().manual_seed(q + ca)
+    ops = [torch.randn(b, c, n, generator=gen).bfloat16()
+           for c, n in ((ca, q), (ca, k), (cg, k), (cg, q))]
+    got = attention.attention_bwd_emulation(*ops)
+    want = attention.attention_backward_reference(*ops)
+    for g, w, op in zip(got, want, ops[:3]):
+        assert g.shape == w.shape == op.shape and g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(), rtol=2e-2, atol=2e-2)
