@@ -190,8 +190,29 @@ of its own right after phase 22:
    (c) the captured step fed by the class feed: the attention launches by
    width of each eager warm-up step and of 5 replays, each set to 0 just
    before its call and read just after it (1 at 24x96 and 3 at 12x48, in
-   the forward and in the backward); finite metrics, ms a replay, peak
-   memory;
+   the forward and in the backward), and the down-block pool's launches
+   (18 forward: D's 5 pooled blocks, the first one's two pools, in 3
+   passes; 16 backward: the input's pool needs a gradient only in the pass
+   for G); finite metrics, ms a replay, peak memory;
+24. the down-block pool kernel (csrc/down_pool.cu) against the plain version
+   (`F.avg_pool2d` of each input, then the add), forward and backward bit
+   for bit, the backward through the op's autograd: (a) at BigGAN D's five
+   pooled blocks (batch 256, bf16), with its forward and backward ms (CUDA
+   events) beside the byte bound (each input and the output moved once
+   forward; the pooled gradient read and one full-resolution gradient
+   written backward, at 3.35 TB/s) and the plain version's ms as the
+   yardstick; (b) at the pooled blocks that ScrabbleGAN's D, W and G's
+   style encoder share (batch 16, words of 1 to 10 letters, float32 and
+   bfloat16, one and two inputs), then `ResNetBlockDown` itself at those
+   blocks against the composition it ran before the op under cuDNN's
+   deterministic convs (output, the gradients reaching both pooled paths,
+   and those of the input and of every parameter, bit for bit; the first
+   block takes its one-channel images as the step does, an NCHW view of
+   NHWC, so its skip conv comes back channels_last and is copied to NCHW),
+   and the kernel's and the plain version's ms over the three blocks at 10
+   letters (`python3 chip_smoke.py --pool-phase` runs the phase alone).
+   Phases 8 and 10 compare and time the attention cores: both of their
+   steps pool through the kernel, so phase 24 is the pool's comparison;
 then the FLOP count (utils/flops.py, JAX's conventions) of G's forward at
 batch 1024, len 5 and 10, and of one train step of phase 18's and phase
 20's configurations, each over this run's times as a share of 989 TFLOP/s,
@@ -218,7 +239,7 @@ Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure raises and the exit code is non-zero; without a card the script
 exits non-zero before any result.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py (phase 24 alone: python3 chip_smoke.py --pool-phase)
 """
 
 from __future__ import annotations
@@ -1448,15 +1469,16 @@ def time_graph_steps(state, chunk, batches) -> dict:
 
 
 GRAPH_KERNEL_NODES = (  # (a COUNTERS entry of train/graphs.py, the trace's kernel of one launch)
-    (0, "attention_fwd_"), (1, "attention_bwd_reduce_kernel"), (3, "fused_block_fwd_"))
+    (0, "attention_fwd_"), (1, "attention_bwd_reduce_kernel"), (3, "fused_block_fwd_"),
+    (4, "down_pool_fwd_kernel"), (5, "down_pool_bwd_kernel"))
 
 
 def profile_graph_steps(state, chunk, batch: dict, steps: int = 5) -> dict:
     """torch.profiler over `steps` replays: device busy share and kernel
     nodes a step, or 'not measured' if the trace holds no kernel of a graph.
-    The attention kernels' nodes a replay, counted in the trace (a backward
-    call ends in one reduce kernel), must equal the launches the capture
-    counted, which the counters add on every replay."""
+    The hand-written kernels' nodes a replay, counted in the trace (an
+    attention backward call ends in one reduce kernel), must equal the
+    launches the capture counted, which the counters add on every replay."""
     from torch.profiler import ProfilerActivity, profile
 
     chunk(state, batch)
@@ -1482,7 +1504,7 @@ def profile_graph_steps(state, chunk, batch: dict, steps: int = 5) -> dict:
                                  f"the capture counted {captured.counts[index]} a replay")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms_per_step": 1e3 * wall / steps, "device_busy_share": busy / span,
-            "traced_attention_nodes_per_replay": traced,
+            "traced_kernel_nodes_per_replay": traced,
             "device_busy_ms_per_step": busy / steps / 1e3,
             "kernel_nodes_per_step": len(kernels) / steps,
             "top_kernels_ms_per_step": [(k[:80], t / steps / 1e3, c / steps)
@@ -2392,6 +2414,11 @@ BIGGAN_REPLAYS = 5
 # attention launches a step by width: G's forward once, D's three times
 # (real, fake for D, fake for G); each backward once per forward
 BIGGAN_PER_STEP = {"24x96": 1, "12x48": 3}
+# down-block pool launches a step: D's blocks 0-4 pool in each of 3 passes,
+# block 0 twice (h, and its input before the skip conv); backward, the
+# input's pool only in the pass for G (the real and detached fake images
+# need no gradient)
+BIGGAN_POOLS_PER_STEP = (18, 16)
 
 
 def check_biggan_cli() -> dict:
@@ -2458,11 +2485,13 @@ def check_biggan_step(attention) -> dict:
     256) fed by the class feed: the graph's eager warm-up steps, the
     capture, then BIGGAN_REPLAYS replays; the attention launches by width of
     each call, the counts set to 0 just before it and read just after, equal
-    to BIGGAN_PER_STEP (a replay's counts added back by utils/capture.py);
+    to BIGGAN_PER_STEP, and the pool's to BIGGAN_POOLS_PER_STEP (a replay's
+    counts added back by utils/capture.py);
     finite metrics; ms a replay (CUDA events) and peak memory. Returns the
     launches of a replay by counter."""
     from scrabblegan_torch.config import load_biggan, load_config
     from scrabblegan_torch.data.classes import synthetic_classes
+    from scrabblegan_torch.kernels import pool
     from scrabblegan_torch.train.classes import class_feed
     from scrabblegan_torch.train.graphs import WARMUP_STEPS
     from scrabblegan_torch.train.state import create_train_state
@@ -2480,15 +2509,18 @@ def check_biggan_step(attention) -> dict:
     want = {f"attention.{kind}.{width}": n for width, n in BIGGAN_PER_STEP.items()
             for kind in ("launches", "bwd_launches")}
     want.update({key: 0 for key in attention.width_launches if key not in want})
+    want.update(zip(("pool.launches", "pool.bwd_launches"), BIGGAN_POOLS_PER_STEP))
     per_call, metrics = [], []
     try:
         for call in range(WARMUP_STEPS + 1 + BIGGAN_REPLAYS):
             batch = feed.get()
             for key in attention.width_launches:
                 attention.width_launches[key] = 0
+            pool.launches = pool.bwd_launches = 0
             metrics.append(chunk(state, batch))
             torch.cuda.synchronize()
-            per_call.append(dict(attention.width_launches))
+            per_call.append({**attention.width_launches, "pool.launches": pool.launches,
+                             "pool.bwd_launches": pool.bwd_launches})
         kinds = ["eager warm-up"] * WARMUP_STEPS + ["capture"] + ["replay"] * BIGGAN_REPLAYS
         for kind, counts in zip(kinds, per_call):
             if kind != "capture" and counts != want:
@@ -2542,6 +2574,226 @@ def biggan_phase() -> int:
     step = check_biggan_step(attention)
     print(json.dumps({"max_abs_err": errs, "launches": step["launches_per_replay"],
                       "cli": cli}))
+    return 0
+
+
+# ---- phase 24: the down-block pool kernel -------------------------------------
+
+POOL_PHASE = "--pool-phase"  # the argument under which the script runs phase 24 alone
+HBM_BYTES_PER_S = 3.35e12
+# BigGAN D's pooled inputs at batch 256, bf16, by block: (C, H, W), and
+# whether the block adds two pooled paths (block 0 pools h and its input
+# apart)
+POOL_BLOCKS = (("0 h", (96, 128, 128), False), ("0 x", (3, 128, 128), False),
+               ("1", (192, 64, 64), True), ("2", (384, 32, 32), True),
+               ("3", (768, 16, 16), True), ("4", (1536, 8, 8), True))
+
+
+def check_pool_bitwise(pool, ins: list, gen, what: str) -> None:
+    """The op against the plain version on inputs `ins` (one or two): the
+    forward, and the gradient of each input through the op's autograd (the
+    backward kernel), bit for bit."""
+    out = pool.down_pool(*ins)
+    if not torch.equal(out, pool.down_pool_reference(*ins)):
+        raise AssertionError(f"pool forward at {what} differs from the plain one")
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    leaves = [t.detach().requires_grad_() for t in ins]
+    got = torch.autograd.grad(pool.down_pool(*leaves), leaves, g)
+    want = torch.autograd.grad(pool.down_pool_reference(*leaves), leaves, g)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"pool backward at {what} differs from the plain one")
+
+
+def time_pool(card: str, batch: int = 256) -> dict:
+    """Phase 24 (a): the pool kernel forward and backward at BigGAN D's
+    pooled blocks against the plain version (bit for bit), each timed by
+    CUDA events beside its byte bound and the plain version's ms; returns
+    the ms of a D pass by kind."""
+    from scrabblegan_torch.kernels import pool
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    total = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bwd_ms", "bwd_plain_ms",
+                           "bwd_bound_ms"), 0.0)
+    for block, chw, two in POOL_BLOCKS:
+        ins = [torch.randn(batch, *chw, generator=gen, device="cuda").bfloat16()
+               for _ in range(1 + two)]
+        check_pool_bitwise(pool, ins, gen, f"D block {block}")
+        out = pool.down_pool(*ins)
+        g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+        leaves = [t.detach().requires_grad_() for t in ins]
+        ref = pool.down_pool_reference(*leaves)
+        row = {"ms": cuda_ms(lambda: pool.down_pool(*ins), 20),
+               "plain_ms": cuda_ms(lambda: pool.down_pool_reference(*ins), 20),
+               "bound_ms": 2 * (sum(t.numel() for t in ins) + out.numel())
+               / HBM_BYTES_PER_S * 1e3,
+               "bwd_ms": cuda_ms(lambda: pool.down_pool_bwd(g), 20),
+               "bwd_plain_ms": cuda_ms(lambda: torch.autograd.grad(ref, leaves, g,
+                                                                   retain_graph=True), 20),
+               "bwd_bound_ms": 2 * (g.numel() + ins[0].numel()) / HBM_BYTES_PER_S * 1e3}
+        for key, ms in row.items():
+            total[key] += ms
+        say("24 pool kernel", card=card, block=block, shape=[batch, *chw], inputs=1 + two,
+            dtype="bfloat16", fwd_bitwise=True, bwd_bitwise=True,
+            fwd_bound_share=row["bound_ms"] / row["ms"],
+            bwd_bound_share=row["bwd_bound_ms"] / row["bwd_ms"], **row)
+        del ins, out, g, leaves, ref
+    torch.cuda.empty_cache()
+    ptxas = pool_ptxas()
+    say("24 pool kernel, a D pass", card=card, batch=batch, **total,
+        fwd_bound_share=total["bound_ms"] / total["ms"],
+        bwd_bound_share=total["bwd_bound_ms"] / total["bwd_ms"], ptxas=ptxas)
+    return total
+
+
+# The pooled down-blocks that ScrabbleGAN's D, W and G's style encoder share
+# (models/generator.py `disc_channels`; the fourth block is the unpooled
+# last): (name, in and out channels, input height). A word of L letters is
+# a 32 x 16L image, and each block halves both sides.
+SCRABBLE_POOL_BLOCKS = (("B1", 1, 64, 32), ("B2", 64, 512, 16), ("B3", 512, 1024, 8))
+SCRABBLE_POOL_BATCH = 16
+SCRABBLE_POOL_LENGTHS = range(1, 11)
+
+
+def composed_down_block(pool, block, x: torch.Tensor) -> torch.Tensor:
+    """A pre-activated ResNetBlockDown with a learned skip as it ran before
+    the op: `F.avg_pool2d` of each path, then the add."""
+    h = block.conv2(torch.relu(block.conv1(torch.relu(x))))
+    return pool.down_pool_reference(h, block.skip(x))
+
+
+def check_pool_scrabblegan(card: str) -> dict:
+    """Phase 24 (b): the op against the plain version at ScrabbleGAN's pooled
+    blocks, then `ResNetBlockDown` itself against the composition, then the
+    ms over the three blocks at 10 letters; returns what was checked and
+    the ms by dtype."""
+    from scrabblegan_torch.kernels import pool
+    from scrabblegan_torch.ops.blocks import ResNetBlockDown
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    dtypes = (torch.float32, torch.bfloat16)
+    ops_checked, widths = 0, set()
+    for dtype in dtypes:
+        for length in SCRABBLE_POOL_LENGTHS:
+            for name, _, cout, h in SCRABBLE_POOL_BLOCKS:
+                shape = (SCRABBLE_POOL_BATCH, cout, h, length * h // 2)
+                for inputs in (1, 2):
+                    ins = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(inputs)]
+                    check_pool_bitwise(pool, ins, gen, f"ScrabbleGAN {name}, {length} letters, "
+                                                       f"{dtype}, {inputs} input(s)")
+                    ops_checked += 1
+                widths.add(shape[3] // 2)
+    say("24 pool kernel, ScrabbleGAN ops", card=card, batch=SCRABBLE_POOL_BATCH,
+        letters=[min(SCRABBLE_POOL_LENGTHS), max(SCRABBLE_POOL_LENGTHS)],
+        blocks=[b[0] for b in SCRABBLE_POOL_BLOCKS], dtypes=[str(d) for d in dtypes],
+        inputs=[1, 2], pooled_widths=sorted(widths), checked=ops_checked,
+        fwd_bitwise=True, bwd_bitwise=True)
+
+    blocks_checked, skip_layouts = 0, set()
+    with deterministic_convs():
+        for dtype in dtypes:
+            for name, cin, cout, h in SCRABBLE_POOL_BLOCKS:
+                block = ResNetBlockDown(cin, cout, dtype=dtype, device="cuda")
+                with torch.no_grad():
+                    for p in block.parameters():
+                        p.copy_(0.05 * torch.randn(p.shape, generator=gen, device="cuda"))
+                for length in (1, 3, 10):
+                    # channels last, as train/step.py hands the images over
+                    # (an NCHW view of NHWC); the later blocks' inputs are NCHW
+                    x = torch.randn(SCRABBLE_POOL_BATCH, h, length * h // 2, cin,
+                                    generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
+                    x = (x if cin == 1 else x.contiguous()).requires_grad_()
+                    g = torch.randn(SCRABBLE_POOL_BATCH, cout, h // 2, length * h // 4,
+                                    generator=gen, device="cuda").to(dtype)
+                    runs = []
+                    for forward in (block, lambda t: composed_down_block(pool, block, t)):
+                        grads, layouts = {}, {}
+
+                        def keep(key):
+                            def hook(module, args, out):
+                                layouts[key] = out.is_contiguous()
+                                out.register_hook(lambda g: grads.__setitem__(key, g))
+                            return hook
+
+                        handles = [block.conv2.register_forward_hook(keep("h")),
+                                   block.skip.register_forward_hook(keep("skip"))]
+                        try:
+                            out = forward(x)
+                            leaf_grads = torch.autograd.grad(out, [x, *block.parameters()], g)
+                        finally:
+                            for handle in handles:
+                                handle.remove()
+                        runs.append((out.detach(), grads, layouts, leaf_grads))
+                    (out, grads, layouts, leaf), (ref, ref_grads, _, ref_leaf) = runs
+                    what = f"ResNetBlockDown {name}, {length} letters, {dtype}"
+                    if not torch.equal(out, ref):
+                        raise AssertionError(f"{what}: the output differs from the composition")
+                    if not all(torch.equal(grads[k], ref_grads[k]) for k in ("h", "skip")):
+                        raise AssertionError(f"{what}: the gradient reaching a pooled path "
+                                             f"differs from the composition's")
+                    if not all(torch.equal(a, b) for a, b in zip(leaf, ref_leaf)):
+                        raise AssertionError(f"{what}: the gradient of the input or of a "
+                                             f"parameter differs from the composition's")
+                    if name == "B1":
+                        skip_layouts.add("NCHW" if layouts["skip"] else "channels_last")
+                    blocks_checked += 1
+                del block
+    say("24 pool kernel, ScrabbleGAN ResNetBlockDown", card=card, batch=SCRABBLE_POOL_BATCH,
+        letters=[1, 3, 10], checked=blocks_checked, fwd_bitwise=True,
+        pooled_path_grads_bitwise=True, input_and_parameter_grads_bitwise=True,
+        first_block_skip_layout=sorted(skip_layouts))
+
+    ms = {}
+    for dtype in dtypes:
+        sets = []
+        for _, _, cout, h in SCRABBLE_POOL_BLOCKS:
+            shape = (SCRABBLE_POOL_BATCH, cout, h, max(SCRABBLE_POOL_LENGTHS) * h // 2)
+            ins = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(2)]
+            leaves = [t.detach().requires_grad_() for t in ins]
+            ref = pool.down_pool_reference(*leaves)
+            g = torch.randn(ref.shape, generator=gen, device="cuda").to(dtype)
+            sets.append((ins, leaves, ref, g))
+        ms[str(dtype)] = {
+            "ms": cuda_ms(lambda: [pool.down_pool(*s[0]) for s in sets], 50),
+            "plain_ms": cuda_ms(lambda: [pool.down_pool_reference(*s[0]) for s in sets], 50),
+            "bwd_ms": cuda_ms(lambda: [pool.down_pool_bwd(s[3]) for s in sets], 50),
+            "bwd_plain_ms": cuda_ms(lambda: [torch.autograd.grad(s[2], s[1], s[3],
+                                                                 retain_graph=True)
+                                             for s in sets], 50)}
+        say("24 pool kernel, ScrabbleGAN blocks B1-B3 at 10 letters", card=card,
+            batch=SCRABBLE_POOL_BATCH, dtype=str(dtype), inputs=2, **ms[str(dtype)])
+        del sets
+    torch.cuda.empty_cache()
+    return {"ops_checked_bitwise": ops_checked, "pooled_widths": sorted(widths),
+            "blocks_checked_bitwise": blocks_checked,
+            "first_block_skip_layout": sorted(skip_layouts), "ms_10_letters": ms}
+
+
+def pool_ptxas() -> list[str]:
+    """ptxas' registers and spills of the pool kernels, each after the name
+    of the kernel it describes (the line before names it)."""
+    from scrabblegan_torch.kernels import build
+
+    name, out = "", []
+    for line in build.build_log().splitlines():
+        if "Function properties for" in line:
+            name = line.split()[-1]
+        elif "down_pool" in name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def pool_phase() -> int:
+    """Phase 24 alone: the build, then the pool kernel's checks and times,
+    then one JSON line."""
+    from scrabblegan_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.load_library()
+    say("2 build", seconds=time.perf_counter() - t0)
+    card = card_line()
+    print(json.dumps({"pool": time_pool(card), "scrabblegan": check_pool_scrabblegan(card)}))
     return 0
 
 
@@ -2611,6 +2863,11 @@ def main() -> int:
     # 23. BigGAN 128 x 128: its CLI, the kernels at its widths and shapes, its
     # captured step's launches, in a process of its own
     biggan = run_biggan_phase()
+
+    # 24. the down-block pool kernel at BigGAN D's shapes, beside its bound,
+    # and at ScrabbleGAN's, through ResNetBlockDown too
+    pool_ms = time_pool(card)
+    pool_scrabble = check_pool_scrabblegan(card)
 
     # 3. kernel vs plain
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2850,7 +3107,12 @@ def main() -> int:
          "max_abs_err_by_dtype": fused_err, "ms": fused_kernel_ms, "plain_ms": fused_plain_ms,
          "shape": "G B3 len 5, batch 1024, bf16",
          **dict(zip(("bound_ms", "bound_by"), fused_bound(BATCH, 2560, 640, torch.bfloat16))),
-         "library_ms": None}]
+         "library_ms": None},
+        {"name": "down_pool", "route": "cuda", "source": "scrabblegan_torch/csrc/down_pool.cu",
+         "replaces": None, "biggan_step_launches": {
+             k: v for k, v in biggan["launches"].items() if k.startswith("pool.")},
+         "shape": "BigGAN D's 5 pooled blocks, a pass, batch 256, bf16", **pool_ms,
+         "scrabblegan": pool_scrabble, "library_ms": None}]
     say("total", seconds=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2869,4 +3131,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(variant_phase() if sys.argv[1:] == [VARIANT_PHASE]
              else parallel_phase() if sys.argv[1:] == [PARALLEL_PHASE]
-             else biggan_phase() if sys.argv[1:] == [BIGGAN_PHASE] else main())
+             else biggan_phase() if sys.argv[1:] == [BIGGAN_PHASE]
+             else pool_phase() if sys.argv[1:] == [POOL_PHASE] else main())

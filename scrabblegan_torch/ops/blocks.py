@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scrabblegan_torch.kernels.pool import down_pool
 from scrabblegan_torch.ops.layers import (FlaxLeaf, SNConv, SNConvTranspose, SNDense,
                                           propose_stats)
 from scrabblegan_torch.parallel.mesh import global_moments
@@ -186,7 +187,9 @@ class ResNetBlockDown(nn.Module):
 
     flax's 'SAME' 2x2/2 average pool equals `F.avg_pool2d(2)` on even heights
     and widths, which is every shape the networks give it; an odd one
-    raises rather than silently pooling differently."""
+    raises rather than silently pooling differently. The pools and the sum of
+    the two pooled paths are `kernels/pool.py`'s `down_pool`: on a card one
+    CUDA pass forward and one backward, on the CPU the plain composition."""
 
     def __init__(self, in_features: int, features: int, is_last_block: bool = False,
                  use_sn: bool = True, dtype: torch.dtype = torch.float32, device=None,
@@ -201,19 +204,26 @@ class ResNetBlockDown(nn.Module):
         self.conv2 = SNConv(features, features, (3, 3), **kw)
         self.skip = SNConv(in_features, features, (1, 1), **kw) if learnable_skip else None
 
-    def _pool(self, h: torch.Tensor) -> torch.Tensor:
-        if self.is_last_block:
-            return h
-        if h.shape[2] % 2 or h.shape[3] % 2:
-            raise ValueError(f"ResNetBlockDown pools even heights and widths only, "
-                             f"got {tuple(h.shape[2:])}")
-        return F.avg_pool2d(h, 2)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(torch.relu(x) if self.preactivation else x)
         h = self.conv2(torch.relu(h))
-        if self.skip is None:
-            return self._pool(h) + x
+        if self.is_last_block:
+            return h + (x if self.skip is None else self.skip(x))
         if self.preactivation:
-            return self._pool(h) + self._pool(self.skip(x))
-        return self._pool(h) + self.skip(self._pool(x))
+            return down_pool(_nchw(h), _nchw(self.skip(x)))
+        return down_pool(_nchw(h)) + self.skip(down_pool(_nchw(x)))
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    """t as the NCHW-contiguous tensor the pool takes: a copy only where a
+    conv returned another layout (a conv of one-channel images, an NCHW view
+    of NHWC, comes back channels_last). The copy's gradient then goes back
+    in t's layout, as `F.avg_pool2d`'s backward gave it, so the conv's
+    backward sums what it summed before, in the same order."""
+    if t.is_contiguous():
+        return t
+    if t.requires_grad:
+        layout = (torch.channels_last if t.is_contiguous(memory_format=torch.channels_last)
+                  else torch.contiguous_format)
+        t.register_hook(lambda g: g.contiguous(memory_format=layout))
+    return t.contiguous()

@@ -14,10 +14,11 @@ and z source, its parameters and statistics held in the program:
 - the attention runs through the registered ops (kernels/attention.py,
   kernels/fused_block.py), so a bundle exported for a card launches the
   hand-written kernel when it runs: the core under 'nhwc1', 'nhwc' and
-  'packed', the fused block under 'fused'. A CPU bundle holds the same ops,
-  which run their plain versions there.
+  'packed', the fused block under 'fused'; the style encoder's down-block
+  pools run through kernels/pool.py's op likewise. A CPU bundle holds the
+  same ops, which run their plain versions there.
 
-`load_exported_generator` needs no model code: it imports torch and the two
+`load_exported_generator` needs no model code: it imports torch and the
 modules that register the ops, and nothing of `scrabblegan_torch.models` or
 `scrabblegan_torch.ops`.
 """
@@ -92,6 +93,7 @@ def load_exported_generator(bundle_dir: str):
     float32 tensor on the bundle's device; it needs no model code."""
     import scrabblegan_torch.kernels.attention  # noqa: F401  (registers the ops)
     import scrabblegan_torch.kernels.fused_block  # noqa: F401
+    import scrabblegan_torch.kernels.pool  # noqa: F401
 
     with open(os.path.join(bundle_dir, META_FILE)) as f:
         meta = json.load(f)

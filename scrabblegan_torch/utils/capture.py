@@ -6,22 +6,23 @@ kernels' launch counters kept exact under replay.
   stall watchdog's probe) takes it first, since a device-wide
   synchronisation during a capture would invalidate it.
 - The hand-written kernels count their launches (`kernels/attention.py`,
-  the attention's also by width, and `kernels/fused_block.py`). A capture
-  launches nothing, so the counts it added are taken back
-  (`add_counts(counts, -1)`) and added again on every replay
-  (`add_counts(counts)`).
+  the attention's also by width, `kernels/fused_block.py` and
+  `kernels/pool.py`). A capture launches nothing, so the counts it added
+  are taken back (`add_counts(counts, -1)`) and added again on every
+  replay (`add_counts(counts)`).
 """
 
 from __future__ import annotations
 
 import threading
 
-from scrabblegan_torch.kernels import attention, fused_block
+from scrabblegan_torch.kernels import attention, fused_block, pool
 
 CAPTURE_LOCK = threading.Lock()
 # the kernels' counters (module, attribute), kept exact under replay
 COUNTERS = ((attention, "launches"), (attention, "bwd_launches"),
-            (attention, "bwd_dout_copies"), (fused_block, "launches"))
+            (attention, "bwd_dout_copies"), (fused_block, "launches"),
+            (pool, "launches"), (pool, "bwd_launches"))
 
 
 def counter_values() -> tuple[int, ...]:

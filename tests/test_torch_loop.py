@@ -211,7 +211,8 @@ def test_resume_starts_at_the_checkpoint_s_epoch(runs):
 def test_export_cli_bundles_the_trainer_s_model_dir(runs):
     """The bundle the export CLI wrote from the Trainer's model dir (its
     config found beside the export, the style z source it was trained
-    with) serves the eager G's images of that export, bitwise."""
+    with) serves the eager G's images of that export, bitwise, and holds
+    the down-block pool op of its style encoder."""
     _, cfg, workdir, *_ = runs
     call, meta = load_exported_generator(str(workdir / "bundle"))
     assert meta == {"batch_size": 2, "length": 2, "z_source": cfg.shared.z_source,
@@ -221,6 +222,8 @@ def test_export_cli_bundles_the_trainer_s_model_dir(runs):
     assert cfg.shared.z_source == "style"
     np.testing.assert_array_equal(call(inputs["labels"], inputs["style"]).numpy(),
                                   inputs["want"])
+    program = torch.export.load(str(workdir / "bundle" / "generator.pt2"))
+    assert "scrabblegan.down_pool.default" in {str(n.target) for n in program.graph.nodes}
 
 
 def test_one_host_fetch_a_flush_block(runs):
