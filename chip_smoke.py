@@ -2169,7 +2169,7 @@ def flop_shares(g, feeds: dict, g_ms: dict, step_runs: dict, make_train_step) ->
     torch.cuda.empty_cache()
 
 
-# ---- phase 22: the parallel modes and the bench twin --------------------------
+# ---- phase 22: the parallel modes ---------------------------------------------
 
 PARALLEL_PHASE = "--parallel-phase"  # the argument under which the script runs phase 22
 PARALLEL_STEPS = 3
@@ -2179,11 +2179,6 @@ PARALLEL_MODES = {"dp": (2, {}), "fsdp": (2, {"parallel.fsdp": True}),
                   "tp": (2, {"parallel.model_parallel": 2}),
                   "fsdp+tp": (4, {"parallel.fsdp": True, "parallel.model_parallel": 2})}
 PARALLEL_OVERRIDES = {"shared.trunk_dtype": "float32"}
-BENCH_ARGS = ["--iters", "10", "5", "--train-steps", "10", "--windows", "2", "--e2e-batches",
-              "20", "--e2e-epochs", "2"]
-BENCH_KEYS = ("mfu_inference_len5", "train_steps_per_sec_batch16", "mfu_train_len5",
-              "train_steps_per_sec_e2e", "e2e_over_raw", "images_per_sec_len10",
-              "mfu_inference_len10", "train_steps_per_sec_len10", "mfu_train_len10", "card")
 
 
 def parallel_nccl_world1(load_config, synthetic_batch, make_train_step) -> None:
@@ -2311,26 +2306,6 @@ def parallel_gloo_modes(card: str) -> dict:
     return launches
 
 
-def bench_child(card: str) -> dict:
-    """Phase 22 (c): `python -m scrabblegan_torch.bench` (cut in depth:
-    BENCH_ARGS) in a child process; its last line carries bench.py's keys."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "scrabblegan_torch.bench", *BENCH_ARGS],
-                          cwd=ROOT, capture_output=True, text=True, timeout=420)
-    if proc.returncode != 0:
-        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    lines = [json.loads(line) for line in proc.stdout.strip().splitlines()]
-    result = lines[-1]
-    missing = [k for k in ("metric", "value", "unit", "vs_baseline", "extra")
-               if k not in result] + [k for k in BENCH_KEYS if k not in result["extra"]]
-    if len(lines) != 5 or missing or result["extra"]["card"] != card:
-        raise AssertionError(f"bench: {len(lines)} lines, missing {missing}")
-    print(json.dumps(result), flush=True)
-    say("22c bench", args=BENCH_ARGS, seconds=time.perf_counter() - t0,
-        images_per_s_len5=result["value"], **{k: result["extra"][k] for k in BENCH_KEYS})
-    return result
-
-
 def run_parallel_phase() -> dict:
     """Phase 22 in a child process (this script with PARALLEL_PHASE), as phase
     20 is: its ranks are processes of their own; its lines are printed here
@@ -2346,8 +2321,8 @@ def run_parallel_phase() -> dict:
 
 
 def parallel_phase() -> int:
-    """The child of `run_parallel_phase`: phase 22 (a), (b), (c), then one
-    JSON line."""
+    """The child of `run_parallel_phase`: phase 22 (a) and (b), then one JSON
+    line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ["SCRABBLEGAN_ATTN_DATAFLOW"] = "nhwc1"
@@ -2360,7 +2335,6 @@ def parallel_phase() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches = parallel_gloo_modes(card)
-    bench_child(card)
     print(json.dumps({"launches": launches}))
     return 0
 
@@ -2857,7 +2831,7 @@ def main() -> int:
             variant["medians"][config])
 
     # 22. the parallel modes (NCCL at world size 1; gloo on 2 and 4 ranks of this
-    # card) and the bench twin, in a process of its own beside its ranks
+    # card), in a process of its own beside its ranks
     parallel = run_parallel_phase()
 
     # 23. BigGAN 128 x 128: its CLI, the kernels at its widths and shapes, its

@@ -20,8 +20,8 @@ them, in one call. `ForwardGraphs` serves `Generator.forward`:
   recorded, so a one-shot call (the `infer` CLI) never pays a capture. The
   second copies its inputs into the signature's static buffers, runs the
   forward on them once on a side stream (the warm-up, whose output it
-  returns) and captures it on that stream under `CAPTURE_LOCK` in the
-  thread-local error mode; so every call launches the forward's kernels
+  returns) and captures it on that stream (utils/capture.py, the train
+  step's capture path); so every call launches the forward's kernels
   once. A later call copies its inputs into the buffers (`copy_`, which also
   materialises an expanded style page) and replays on the current stream.
   Every call returns a fresh clone of the static output, so a caller may
@@ -40,8 +40,7 @@ them, in one call. `ForwardGraphs` serves `Generator.forward`:
   output is cloned on the replay's stream before any later replay, so no
   graph's memory must outlive its replay. Calls from two threads or
   streams must not overlap;
-- counters: the kernels' launch counters stay exact (utils/capture.py);
-  while tracing (utils/profiling.py), `g.graph.replay` counts calls served
+- counters: while tracing (utils/profiling.py), `g.graph.replay` counts calls served
   by a replay, `g.graph.capture` captures and `g.graph.eager` calls that
   could have replayed and ran eagerly (a first sighting, a weights
   mismatch); a capture is a `once` span `g.graph.capture`.
@@ -63,7 +62,7 @@ from torch import nn
 from scrabblegan_torch.ops.attention import NonLocalBlock, resolve_dataflow
 from scrabblegan_torch.parallel import mesh as pmesh
 from scrabblegan_torch.utils import profiling
-from scrabblegan_torch.utils.capture import CAPTURE_LOCK, add_counts, counter_values
+from scrabblegan_torch.utils.capture import Captured, aside, capture, replay
 
 Inputs = tuple[Optional[torch.Tensor], ...]  # labels, z, lengths, style_imgs
 
@@ -99,13 +98,8 @@ def _weights(module: nn.Module) -> list[tuple[dict, str, torch.Tensor, int]]:
 
 
 @dataclasses.dataclass
-class Graph:
-    graph: torch.cuda.CUDAGraph
+class Graph(Captured):
     inputs: Inputs                   # static buffers, None where the input is None
-    out: torch.Tensor                # static output
-    counts: tuple[int, ...]          # kernel launches a replay, by utils/capture.py COUNTERS
-    capture_s: float                 # the capture itself, wall seconds
-    pool_bytes: int                  # device memory the capture reserved for the pool
 
 
 class ForwardGraphs:
@@ -148,9 +142,7 @@ class ForwardGraphs:
             if buf is not None:
                 buf.copy_(x)
         profiling.count("g.graph.replay")
-        graph.graph.replay()
-        add_counts(graph.counts)
-        return graph.out.clone()
+        return replay(graph)
 
     def _live(self) -> bool:
         return all(store.get(name) is t and t.data_ptr() == ptr
@@ -169,26 +161,12 @@ class ForwardGraphs:
         device = inputs[0].device
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
-        current = torch.cuda.current_stream(device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream), _uncached_autocast():
-            warm = forward(*static)
-        current.wait_stream(self._stream)
-        warm.record_stream(current)
-        graph = torch.cuda.CUDAGraph()
-        before = counter_values()
-        with profiling.once("g.graph.capture") as took, CAPTURE_LOCK, \
-                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                 capture_error_mode="thread_local"), _uncached_autocast():
-            reserved = torch.cuda.memory_reserved(device)  # after the cache was emptied
-            out = forward(*static)
-            pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        counts = tuple(a - b for a, b in zip(counter_values(), before))
-        add_counts(counts, -1)  # a capture launches nothing
-        if self._pool is None:
-            self._pool = graph.pool()
+        warm = aside(lambda: forward(*static), self._stream, device, _uncached_autocast())
+        captured = capture(lambda: forward(*static), self._pool, self._stream, device,
+                           "g.graph.capture", _uncached_autocast())
+        self._pool = captured.pool
         self._weights = weights
-        self.graphs[sig] = Graph(graph, static, out, counts, took.seconds, pool_bytes)
+        self.graphs[sig] = Graph(**vars(captured), inputs=static)
         profiling.count("g.graph.capture")
         return warm
 

@@ -5,7 +5,8 @@ The port's counterpart of JAX's jitted step: the eager step issues ~7,800
 kernels from Python and keeps the card idle most of the time, where a graph
 replays them in one launch. `StepGraphs` keeps one `torch.cuda.CUDAGraph` per
 batch-shape signature (one in padded mode, one per (real, fake) bucket pair
-otherwise) and runs K steps a call by replaying one step's graph K times:
+otherwise) and runs K steps a call by replaying one step's graph K times
+(utils/capture.py holds the capture path it shares with G's graphs):
 
 - static inputs: a signature's device buffers, allocated at its first
   step; every step copies its batch into them (asynchronously, on the
@@ -22,7 +23,7 @@ otherwise) and runs K steps a call by replaying one step's graph K times:
 - capture: `before_capture`, when set, is called first (the Trainer's
   stall-watchdog grace); every `.grad` is None, so the backward allocates
   its gradients in the graph's pool; the capture records the body and runs
-  nothing;
+  nothing; a failed capture raises (no fallback);
 - replay: a step replays and clones the 16 metrics out of the static
   output, and a call stacks its K columns into a fresh (16, K) tensor, so
   that a block of pending metrics never aliases the newest step's;
@@ -31,31 +32,24 @@ otherwise) and runs K steps a call by replaying one step's graph K times:
   step's phase marks as event-record nodes of the graph (`capture_marks`),
   so every replay times its phases on the device; while tracing is on a
   replay is also timed as a whole (`profiling.replay`);
-- the kernels' launch counters count a capture's launches once and a
-  replay not at all: the counts a capture added are taken back and added
-  again on every replay, so the counters stay exact (utils/capture.py);
 - memory: all graphs of one `StepGraphs` share one pool. That is safe here:
   a replay reads only the static inputs and the state, which live outside
   the pool, and its one output is copied out before the next replay, so no
   graph's memory must outlive its replay. The pool therefore holds about
   one step's activations, however many bucket pairs are captured.
-
-No fallback: a failed capture raises. `CAPTURE_LOCK` (utils/capture.py) is
-held for the length of a capture; a device round trip from another thread
-(the stall watchdog's probe) takes it first, since a device-wide
-synchronisation during a capture would invalidate it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
 
 from scrabblegan_torch.train.state import TrainState
 from scrabblegan_torch.utils import profiling
-from scrabblegan_torch.utils.capture import CAPTURE_LOCK, add_counts, counter_values
+from scrabblegan_torch.utils.capture import Captured, aside, capture, replay
 
 WARMUP_STEPS = 2  # eager steps of a signature on the capture stream before its capture
 
@@ -66,17 +60,6 @@ class _Inputs:
     batch: dict[str, torch.Tensor]
     z: Optional[torch.Tensor]
     warm: int = 0
-
-
-@dataclasses.dataclass
-class CapturedStep:
-    graph: torch.cuda.CUDAGraph
-    inputs: _Inputs
-    metrics: torch.Tensor            # static (16,) output
-    counts: tuple[int, ...]          # kernel launches a replay, by COUNTERS
-    capture_s: float                 # the capture itself, wall seconds
-    pool_bytes: int                  # device memory the capture reserved for its pool
-    marks: profiling.Marks           # the step's phase marks, recorded by every replay
 
 
 def signature(batches: dict[str, torch.Tensor], z: Optional[torch.Tensor]) -> tuple:
@@ -92,7 +75,7 @@ class StepGraphs:
     def __init__(self, body: Callable, device: torch.device):
         self.body = body
         self.device = device
-        self.captured: dict[tuple, CapturedStep] = {}
+        self.captured: dict[tuple, Captured] = {}  # out: the (16,) metrics; entered: the marks
         self.warmup_steps = 0  # eager warm-up steps run so far, every signature's
         self.before_capture: Optional[Callable[[], None]] = None
         self._inputs: dict[tuple, _Inputs] = {}
@@ -114,6 +97,7 @@ class StepGraphs:
                  for key, v in batches.items()},
                 None if z is None else torch.empty(z.shape[1:], dtype=z.dtype,
                                                    device=self.device))
+        run = functools.partial(self.body, state, inputs.batch, inputs.z)
         cols = []
         for i in range(next(iter(batches.values())).shape[0]):
             for key, buf in inputs.batch.items():
@@ -121,45 +105,23 @@ class StepGraphs:
             if z is not None:
                 inputs.z.copy_(z[i], non_blocking=True)
             step = self.captured.get(sig)
-            if step is None and inputs.warm < WARMUP_STEPS:
-                cols.append(self._eager(state, inputs))
+            if step is None and inputs.warm < WARMUP_STEPS:  # a warm-up step
+                cols.append(aside(run, self._stream, self.device, profiling.once("graphs.warmup")))
+                inputs.warm += 1
+                self.warmup_steps += 1
                 continue
             if step is None:
-                step = self.captured[sig] = self._capture(state, inputs)
-            profiling.replay(step.graph, step.marks)
-            cols.append(step.metrics.clone())
-            add_counts(step.counts)
+                step = self.captured[sig] = self._capture(state, run)
+            cols.append(replay(step, step.entered))
         return torch.stack(cols, dim=1)
 
-    def _eager(self, state: TrainState, inputs: _Inputs) -> torch.Tensor:
-        """One warm-up step: the body on the capture stream."""
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream), profiling.once("graphs.warmup"):
-            metrics = self.body(state, inputs.batch, inputs.z)
-        current.wait_stream(self._stream)
-        metrics.record_stream(current)
-        inputs.warm += 1
-        self.warmup_steps += 1
-        return metrics
-
-    def _capture(self, state: TrainState, inputs: _Inputs) -> CapturedStep:
+    def _capture(self, state: TrainState, run: Callable[[], torch.Tensor]) -> Captured:
         if self.before_capture is not None:
             self.before_capture()
         for module in state.modules().values():
             for p in module.parameters():
                 p.grad = None
-        graph = torch.cuda.CUDAGraph()
-        before = counter_values()
-        with profiling.once("graphs.capture") as took, CAPTURE_LOCK, \
-                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                 capture_error_mode="thread_local"), \
-                profiling.capture_marks() as marks:
-            reserved = torch.cuda.memory_reserved(self.device)  # after the cache was emptied
-            metrics = self.body(state, inputs.batch, inputs.z)
-            pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        counts = tuple(a - b for a, b in zip(counter_values(), before))
-        add_counts(counts, -1)  # a capture launches nothing
-        if self._pool is None:
-            self._pool = graph.pool()
-        return CapturedStep(graph, inputs, metrics, counts, took.seconds, pool_bytes, marks)
+        step = capture(run, self._pool, self._stream, self.device, "graphs.capture",
+                       profiling.capture_marks())
+        self._pool = step.pool
+        return step

@@ -249,7 +249,7 @@ class Trainer:
 
         watchdog = None
         if cfg.io.stall_timeout_s > 0:
-            from scrabblegan_torch.train.graphs import CAPTURE_LOCK
+            from scrabblegan_torch.utils.capture import CAPTURE_LOCK
             from scrabblegan_torch.utils.watchdog import StallWatchdog, device_roundtrip_probe
 
             watchdog = StallWatchdog(cfg.io.stall_timeout_s,
