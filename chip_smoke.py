@@ -197,7 +197,9 @@ of its own right after phase 22:
 24. the down-block pool kernel (csrc/down_pool.cu) against the plain version
    (`F.avg_pool2d` of each input, then the add), forward and backward bit
    for bit, the backward through the op's autograd: (a) at BigGAN D's five
-   pooled blocks (batch 256, bf16), with its forward and backward ms (CUDA
+   pooled blocks (batch 256, bf16, channels_last as D hands them over; the
+   output and the gradient channels_last, every launch the channels_last
+   instance's), with its forward and backward ms (CUDA
    events) beside the byte bound (each input and the output moved once
    forward; the pooled gradient read and one full-resolution gradient
    written backward, at 3.35 TB/s) and the plain version's ms as the
@@ -2391,8 +2393,11 @@ BIGGAN_PER_STEP = {"24x96": 1, "12x48": 3}
 # down-block pool launches a step: D's blocks 0-4 pool in each of 3 passes,
 # block 0 twice (h, and its input before the skip conv); backward, the
 # input's pool only in the pass for G (the real and detached fake images
-# need no gradient)
+# need no gradient); all of them the pool's channels_last instance (D's
+# trunk is channels_last on a card)
 BIGGAN_POOLS_PER_STEP = (18, 16)
+POOL_COUNTERS = ("pool.launches", "pool.bwd_launches", "pool.nhwc_launches",
+                 "pool.nhwc_bwd_launches")
 
 
 def check_biggan_cli() -> dict:
@@ -2483,18 +2488,18 @@ def check_biggan_step(attention) -> dict:
     want = {f"attention.{kind}.{width}": n for width, n in BIGGAN_PER_STEP.items()
             for kind in ("launches", "bwd_launches")}
     want.update({key: 0 for key in attention.width_launches if key not in want})
-    want.update(zip(("pool.launches", "pool.bwd_launches"), BIGGAN_POOLS_PER_STEP))
+    want.update(zip(POOL_COUNTERS, BIGGAN_POOLS_PER_STEP * 2))
     per_call, metrics = [], []
     try:
         for call in range(WARMUP_STEPS + 1 + BIGGAN_REPLAYS):
             batch = feed.get()
             for key in attention.width_launches:
                 attention.width_launches[key] = 0
-            pool.launches = pool.bwd_launches = 0
+            pool.launches = pool.bwd_launches = pool.nhwc_launches = pool.nhwc_bwd_launches = 0
             metrics.append(chunk(state, batch))
             torch.cuda.synchronize()
-            per_call.append({**attention.width_launches, "pool.launches": pool.launches,
-                             "pool.bwd_launches": pool.bwd_launches})
+            per_call.append({**attention.width_launches,
+                             **{key: getattr(pool, key[5:]) for key in POOL_COUNTERS}})
         kinds = ["eager warm-up"] * WARMUP_STEPS + ["capture"] + ["replay"] * BIGGAN_REPLAYS
         for kind, counts in zip(kinds, per_call):
             if kind != "capture" and counts != want:
@@ -2580,20 +2585,31 @@ def check_pool_bitwise(pool, ins: list, gen, what: str) -> None:
 
 def time_pool(card: str, batch: int = 256) -> dict:
     """Phase 24 (a): the pool kernel forward and backward at BigGAN D's
-    pooled blocks against the plain version (bit for bit), each timed by
-    CUDA events beside its byte bound and the plain version's ms; returns
-    the ms of a D pass by kind."""
+    pooled blocks, channels_last as D hands them over, against the plain
+    version (bit for bit; the output and the gradient channels_last, every
+    launch the channels_last instance's), each timed by CUDA events beside
+    its byte bound and the plain version's ms; returns the ms of a D pass by
+    kind."""
     from scrabblegan_torch.kernels import pool
 
     gen = torch.Generator(device="cuda").manual_seed(24)
     total = dict.fromkeys(("ms", "plain_ms", "bound_ms", "bwd_ms", "bwd_plain_ms",
                            "bwd_bound_ms"), 0.0)
+    cl = torch.channels_last
     for block, chw, two in POOL_BLOCKS:
         ins = [torch.randn(batch, *chw, generator=gen, device="cuda").bfloat16()
-               for _ in range(1 + two)]
+               .contiguous(memory_format=cl) for _ in range(1 + two)]
+        counts = (pool.launches, pool.bwd_launches, pool.nhwc_launches, pool.nhwc_bwd_launches)
         check_pool_bitwise(pool, ins, gen, f"D block {block}")
+        if (pool.launches - counts[0], pool.bwd_launches - counts[1]) != (
+                pool.nhwc_launches - counts[2], pool.nhwc_bwd_launches - counts[3]):
+            raise AssertionError(f"pool at D block {block} launched the NCHW instance")
         out = pool.down_pool(*ins)
-        g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+        g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16().contiguous(
+            memory_format=cl)
+        if not (out.is_contiguous(memory_format=cl)
+                and pool.down_pool_bwd(g).is_contiguous(memory_format=cl)):
+            raise AssertionError(f"pool at D block {block} left channels_last")
         leaves = [t.detach().requires_grad_() for t in ins]
         ref = pool.down_pool_reference(*leaves)
         row = {"ms": cuda_ms(lambda: pool.down_pool(*ins), 20),
@@ -2607,13 +2623,13 @@ def time_pool(card: str, batch: int = 256) -> dict:
         for key, ms in row.items():
             total[key] += ms
         say("24 pool kernel", card=card, block=block, shape=[batch, *chw], inputs=1 + two,
-            dtype="bfloat16", fwd_bitwise=True, bwd_bitwise=True,
+            dtype="bfloat16", layout="channels_last", fwd_bitwise=True, bwd_bitwise=True,
             fwd_bound_share=row["bound_ms"] / row["ms"],
             bwd_bound_share=row["bwd_bound_ms"] / row["bwd_ms"], **row)
         del ins, out, g, leaves, ref
     torch.cuda.empty_cache()
     ptxas = pool_ptxas()
-    say("24 pool kernel, a D pass", card=card, batch=batch, **total,
+    say("24 pool kernel, a D pass", card=card, batch=batch, layout="channels_last", **total,
         fwd_bound_share=total["bound_ms"] / total["ms"],
         bwd_bound_share=total["bwd_bound_ms"] / total["bwd_ms"], ptxas=ptxas)
     return total
@@ -3085,7 +3101,8 @@ def main() -> int:
         {"name": "down_pool", "route": "cuda", "source": "scrabblegan_torch/csrc/down_pool.cu",
          "replaces": None, "biggan_step_launches": {
              k: v for k, v in biggan["launches"].items() if k.startswith("pool.")},
-         "shape": "BigGAN D's 5 pooled blocks, a pass, batch 256, bf16", **pool_ms,
+         "shape": "BigGAN D's 5 pooled blocks, a pass, batch 256, bf16, channels_last",
+         **pool_ms,
          "scrabblegan": pool_scrabble, "library_ms": None}]
     say("total", seconds=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}))

@@ -46,10 +46,22 @@
 // tensor where the composition wrote three, and the backward writes one
 // full-resolution gradient where it wrote two.
 //
+// The NHWC instance (`down_pool_nhwc_fwd` / `_bwd`) computes the same for
+// channels_last-contiguous a and b (memory order N, H, W, C) and writes a
+// channels_last result: a thread takes kVec neighbouring channels of one
+// output pixel and reads them at each of the window's four pixels, C
+// elements apart along a row and 2 W C between the window's rows, as
+// 16-byte loads where C and the pointers allow (kVec 8 in bfloat16, 4 in
+// float32 at BigGAN D's 96-1536 channels; 1 for block 0's 3-channel
+// input); neighbouring threads take neighbouring channel vectors, so a warp
+// reads whole pixels. Its window sums, roundings and backward are the NCHW
+// instance's, so it equals the composition on channels_last inputs bit for
+// bit too. Two divisions a vector (by C / kVec, then by the pooled width).
+//
 // The C entries launch on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (cudaErrorMisalignedAddress for
-// pointers not aligned to one element pair, cudaErrorInvalidValue for
-// another dtype code).
+// pointers not aligned to one element pair, or under NHWC to one element,
+// cudaErrorInvalidValue for another dtype code).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,6 +179,71 @@ down_pool_bwd_kernel(const T* __restrict__ g, T* __restrict__ d, I vectors, I ro
   store<T, 2 * kOut>(top + 2 * wo, o);
 }
 
+// kVec sums of the 2x2 window whose top-left pixel starts at p, in NHWC:
+// the right neighbour `c` elements on, the row below `down` elements on;
+// summed as PyTorch's avg_pool2d sums it (row by row, left to right)
+template <typename T, int kVec, typename I>
+__device__ __forceinline__ void window_sums_nhwc(const T* __restrict__ p, I c, I down,
+                                                 float (&s)[kVec]) {
+  float x00[kVec], x01[kVec], x10[kVec], x11[kVec];
+  load<T, kVec>(p, x00);
+  load<T, kVec>(p + c, x01);
+  load<T, kVec>(p + down, x10);
+  load<T, kVec>(p + down + c, x11);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) s[k] = x00[k] + x01[k] + x10[k] + x11[k];
+}
+
+// Vector v of `vectors` covers channels [ch, ch + kVec) of output pixel
+// p = row wo + j (row over N and the pooled height); `pixel_vectors` =
+// c / kVec. The window's top-left input pixel is (2 row) (2 wo) + 2 j.
+template <typename T, int kVec, typename I>
+__global__ void __launch_bounds__(kThreads)
+down_pool_nhwc_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                          T* __restrict__ out, I vectors, I pixel_vectors, I wo, I c) {
+  const I v = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  if (v >= vectors) return;
+  const I p = v / pixel_vectors;
+  const I ch = (v - p * pixel_vectors) * kVec;
+  const I row = p / wo;
+  const I at = (4 * row * wo + 2 * (p - row * wo)) * c + ch;
+  float s[kVec];
+  T o[kVec];
+  window_sums_nhwc<T, kVec, I>(a + at, c, 2 * wo * c, s);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) o[k] = from_float<T>(s[k] * 0.25f);
+  if (b != nullptr) {
+    window_sums_nhwc<T, kVec, I>(b + at, c, 2 * wo * c, s);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      o[k] = from_float<T>(to_float(o[k]) + to_float(from_float<T>(s[k] * 0.25f)));
+  }
+  store<T, kVec>(out + p * c + ch, o);
+}
+
+// The same vectors over the pooled gradient g: its kVec values, times 1/4,
+// into the window's four pixels of d.
+template <typename T, int kVec, typename I>
+__global__ void __launch_bounds__(kThreads)
+down_pool_nhwc_bwd_kernel(const T* __restrict__ g, T* __restrict__ d, I vectors,
+                          I pixel_vectors, I wo, I c) {
+  const I v = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  if (v >= vectors) return;
+  const I p = v / pixel_vectors;
+  const I ch = (v - p * pixel_vectors) * kVec;
+  const I row = p / wo;
+  float x[kVec];
+  load<T, kVec>(g + p * c + ch, x);
+  T o[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) o[k] = from_float<T>(x[k] * 0.25f);
+  T* top = d + (4 * row * wo + 2 * (p - row * wo)) * c + ch;
+  store<T, kVec>(top, o);
+  store<T, kVec>(top + c, o);
+  store<T, kVec>(top + 2 * wo * c, o);
+  store<T, kVec>(top + 2 * wo * c + c, o);
+}
+
 // the largest power of two (at most 16) that divides the address
 int alignment(const void* p) {
   const uintptr_t x = reinterpret_cast<uintptr_t>(p);
@@ -237,12 +314,73 @@ int run(const void* a, const void* b, void* out, const void* g, void* d, long lo
   return static_cast<int>(err);
 }
 
+template <typename T, int kVec, typename I>
+cudaError_t launch_nhwc(const T* a, const T* b, T* out, const T* g, T* d, long long rows,
+                        long long wo, long long c, cudaStream_t s) {
+  const long long vectors = rows * wo * (c / kVec);
+  const long long blocks = (vectors + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  if (g == nullptr)
+    down_pool_nhwc_fwd_kernel<T, kVec, I><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        a, b, out, static_cast<I>(vectors), static_cast<I>(c / kVec), static_cast<I>(wo),
+        static_cast<I>(c));
+  else
+    down_pool_nhwc_bwd_kernel<T, kVec, I><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        g, d, static_cast<I>(vectors), static_cast<I>(c / kVec), static_cast<I>(wo),
+        static_cast<I>(c));
+  return cudaGetLastError();
+}
+
+// 32-bit indices where the full-resolution side's 4 rows wo c elements fit
+template <typename T, int kVec>
+cudaError_t launch_nhwc_indexed(const T* a, const T* b, T* out, const T* g, T* d,
+                                long long rows, long long wo, long long c, cudaStream_t s) {
+  if (4 * rows * wo * c <= static_cast<long long>(UINT_MAX))
+    return launch_nhwc<T, kVec, unsigned int>(a, b, out, g, d, rows, wo, c, s);
+  return launch_nhwc<T, kVec, unsigned long long>(a, b, out, g, d, rows, wo, c, s);
+}
+
+// The NHWC forward (g == nullptr) or backward, in T: the widest kVec (at
+// most 16 bytes) that divides c and that every pointer's alignment allows.
+template <typename T>
+int run_nhwc(const void* a, const void* b, void* out, const void* g, void* d, long long rows,
+             long long wo, long long c, cudaStream_t s) {
+  int align = g == nullptr ? alignment(a) : alignment(g);
+  const void* others[] = {b, out, d};
+  for (const void* p : others)
+    if (p != nullptr && alignment(p) < align) align = alignment(p);
+  int k = 16 / static_cast<int>(sizeof(T));
+  while (k > 1 && (c % k != 0 || align < k * static_cast<int>(sizeof(T)))) k /= 2;
+  const T *ta = static_cast<const T*>(a), *tb = static_cast<const T*>(b),
+          *tg = static_cast<const T*>(g);
+  T *to = static_cast<T*>(out), *td = static_cast<T*>(d);
+  if (align < static_cast<int>(sizeof(T))) return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaError_t err = cudaErrorMisalignedAddress;
+  switch (k) {
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        err = launch_nhwc_indexed<T, 8>(ta, tb, to, tg, td, rows, wo, c, s);
+      break;
+    case 4: err = launch_nhwc_indexed<T, 4>(ta, tb, to, tg, td, rows, wo, c, s); break;
+    case 2: err = launch_nhwc_indexed<T, 2>(ta, tb, to, tg, td, rows, wo, c, s); break;
+    case 1: err = launch_nhwc_indexed<T, 1>(ta, tb, to, tg, td, rows, wo, c, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// c = 0: the NCHW instance; c > 0 (the NHWC entries' check): the NHWC
+// instance with c channels
 int dispatch(const void* a, const void* b, void* out, const void* g, void* d, long long rows,
-             long long wo, int dtype, int device, void* stream) {
+             long long wo, long long c, int dtype, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (rows <= 0 || wo <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c > 0) {
+    if (dtype == 0) return run_nhwc<float>(a, b, out, g, d, rows, wo, c, s);
+    if (dtype == 1) return run_nhwc<bf16>(a, b, out, g, d, rows, wo, c, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) return run<float>(a, b, out, g, d, rows, wo, s);
   if (dtype == 1) return run<bf16>(a, b, out, g, d, rows, wo, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -256,11 +394,27 @@ int dispatch(const void* a, const void* b, void* out, const void* g, void* d, lo
 // own (static) CUDA runtime, whose current device is set here.
 extern "C" int down_pool_fwd(const void* a, const void* b, void* out, long long rows,
                              long long wo, int dtype, int device, void* stream) {
-  return dispatch(a, b, out, nullptr, nullptr, rows, wo, dtype, device, stream);
+  return dispatch(a, b, out, nullptr, nullptr, rows, wo, 0, dtype, device, stream);
 }
 
 // d (2 rows, 2 wo) = g (rows, wo) / 4 spread over each 2x2 window.
 extern "C" int down_pool_bwd(const void* g, void* d, long long rows, long long wo, int dtype,
                              int device, void* stream) {
-  return dispatch(nullptr, nullptr, nullptr, g, d, rows, wo, dtype, device, stream);
+  return dispatch(nullptr, nullptr, nullptr, g, d, rows, wo, 0, dtype, device, stream);
+}
+
+// The same over channels_last-contiguous tensors: out (rows, wo, c) from a
+// and b (2 rows, 2 wo, c), rows = N H/2, c > 0 channels innermost.
+extern "C" int down_pool_nhwc_fwd(const void* a, const void* b, void* out, long long rows,
+                                  long long wo, long long c, int dtype, int device,
+                                  void* stream) {
+  if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(a, b, out, nullptr, nullptr, rows, wo, c, dtype, device, stream);
+}
+
+// d (2 rows, 2 wo, c) = g (rows, wo, c) / 4 spread over each 2x2 window.
+extern "C" int down_pool_nhwc_bwd(const void* g, void* d, long long rows, long long wo,
+                                  long long c, int dtype, int device, void* stream) {
+  if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(nullptr, nullptr, nullptr, g, d, rows, wo, c, dtype, device, stream);
 }

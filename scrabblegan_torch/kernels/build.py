@@ -53,6 +53,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.down_pool_fwd.restype = i
     lib.down_pool_bwd.argtypes = [p, p, ll, ll, i, i, p]
     lib.down_pool_bwd.restype = i
+    lib.down_pool_nhwc_fwd.argtypes = [p, p, p, ll, ll, ll, i, i, p]
+    lib.down_pool_nhwc_fwd.restype = i
+    lib.down_pool_nhwc_bwd.argtypes = [p, p, ll, ll, ll, i, i, p]
+    lib.down_pool_nhwc_bwd.restype = i
     for name in ("attention_fwd_key_tile", "attention_fwd_key_chunk",
                  "attention_fwd_warp_queries", "attention_bwd_warps",
                  "attention_bwd_warp_rows", "attention_bwd_keys", "attention_bwd_query_tile",

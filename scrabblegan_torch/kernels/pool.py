@@ -9,7 +9,11 @@ pool(h) + pool(s). `down_pool(a, b)` is that sum in one pass, and
     out[n, c, i, j] = (sum of a's 2x2 window at (2i, 2j) + the same of b) / 4
 
 The CUDA kernels (`scrabblegan_torch/csrc/down_pool.cu`) replace no TPU
-kernel: the JAX package leaves the pool to XLA. They read each input once
+kernel: the JAX package leaves the pool to XLA. They come in two instances,
+one for NCHW-contiguous tensors and one for channels_last-contiguous ones
+(the layout of BigGAN's D), each returning its inputs' layout; a tensor
+that is both (one channel, or one pixel) takes the NCHW instance, and any
+other strides raise. They read each input once
 and write the result once, and round where the composition rounds (each
 pooled path to the inputs' dtype, float32 or bfloat16, then their sum), so
 the forward equals it bit for bit; the backward writes g / 4 into each
@@ -25,9 +29,11 @@ spread over each window), which gives the composition's results bit for
 bit, and a fake that gives the shapes, so that `torch.export` keeps the op
 in an exported program (train/export.py). Registering builds nothing.
 Dispatch has no fallback: a CUDA tensor launches the kernel or raises.
-`launches` and `bwd_launches` count kernel launches; utils/capture.py keeps
-them exact under CUDA graph replay. The launch paths read nothing from the
-device and take their outputs from `torch.empty`, so a capture takes them.
+`launches` and `bwd_launches` count kernel launches of both instances,
+`nhwc_launches` and `nhwc_bwd_launches` those of the channels_last one;
+utils/capture.py keeps them exact under CUDA graph replay. The launch paths
+read nothing from the device and take their outputs from `torch.empty`, so
+a capture takes them.
 """
 
 from __future__ import annotations
@@ -38,11 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from scrabblegan_torch.kernels.build import load_library
+from scrabblegan_torch.utils.layout import memory_format
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0      # forward kernel launches since the last reset; the caller resets it
 bwd_launches = 0  # backward kernel launches, likewise
+nhwc_launches = 0      # of `launches`, those of the channels_last instance
+nhwc_bwd_launches = 0  # of `bwd_launches`, likewise
 
 
 def _check(a: torch.Tensor, b: Optional[torch.Tensor]) -> None:
@@ -58,12 +67,13 @@ def _check(a: torch.Tensor, b: Optional[torch.Tensor]) -> None:
         raise ValueError("down_pool of an empty tensor")
 
 
-def _check_kernel_operand(name: str, t: torch.Tensor) -> None:
+def _check_kernel_operand(name: str, t: torch.Tensor, layout: torch.memory_format) -> None:
     if t.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA pool takes float32 or bfloat16, got {name} in {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"the CUDA pool takes NCHW-contiguous tensors; {name} has strides "
-                         f"{t.stride()} for shape {tuple(t.shape)}")
+    if not t.is_contiguous(memory_format=layout):
+        raise ValueError(f"the CUDA pool takes NCHW-contiguous or channels_last-contiguous "
+                         f"tensors, both in one layout; {name} has strides {t.stride()} for "
+                         f"shape {tuple(t.shape)}")
     if t.data_ptr() % (2 * t.element_size()):
         raise ValueError(f"the CUDA pool takes tensors aligned to two elements; {name} "
                          f"starts at {t.data_ptr():#x}")
@@ -81,50 +91,62 @@ def down_pool_bwd_reference(g: torch.Tensor) -> torch.Tensor:
     window of the (N, C, 2H, 2W) gradient; `F.avg_pool2d`'s backward, bit for
     bit (the division by 4 is exact)."""
     n, c, h, w = g.shape
-    return (g * 0.25)[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h,
-                                                                              2 * w)
+    d = (g * 0.25)[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
+    return d.contiguous(memory_format=memory_format(g))
 
 
 def _launch_forward(a: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
-    global launches
+    global launches, nhwc_launches
     _check(a, b)
+    layout = memory_format(a)
     for name, t in (("a", a), ("b", b)):
         if t is not None:
-            _check_kernel_operand(name, t)
+            _check_kernel_operand(name, t, layout)
     n, c, h, w = a.shape
-    out = torch.empty((n, c, h // 2, w // 2), dtype=a.dtype, device=a.device)
-    err = load_library().down_pool_fwd(
-        a.data_ptr(), b.data_ptr() if b is not None else None, out.data_ptr(), n * c * (h // 2),
-        w // 2, _DTYPE_CODE[a.dtype], a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    out = torch.empty((n, c, h // 2, w // 2), dtype=a.dtype, device=a.device,
+                      memory_format=layout)
+    nhwc = layout == torch.channels_last
+    lib = load_library()
+    launch, sizes = ((lib.down_pool_nhwc_fwd, (n * (h // 2), w // 2, c)) if nhwc
+                     else (lib.down_pool_fwd, (n * c * (h // 2), w // 2)))
+    err = launch(a.data_ptr(), b.data_ptr() if b is not None else None, out.data_ptr(), *sizes,
+                 _DTYPE_CODE[a.dtype], a.device.index,
+                 torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"down_pool_fwd launch failed with CUDA error {err}")
     launches += 1
+    nhwc_launches += nhwc
     return out
 
 
 def _launch_backward(g: torch.Tensor) -> torch.Tensor:
-    global bwd_launches
+    global bwd_launches, nhwc_bwd_launches
     if g.dim() != 4 or g.numel() == 0:
         raise ValueError(f"down_pool_bwd takes a non-empty (N, C, H, W) gradient, got "
                          f"{tuple(g.shape)}")
-    _check_kernel_operand("g", g)
+    layout = memory_format(g)
+    _check_kernel_operand("g", g, layout)
     n, c, h, w = g.shape
-    d = torch.empty((n, c, 2 * h, 2 * w), dtype=g.dtype, device=g.device)
-    err = load_library().down_pool_bwd(
-        g.data_ptr(), d.data_ptr(), n * c * h, w, _DTYPE_CODE[g.dtype], g.device.index,
-        torch.cuda.current_stream(g.device).cuda_stream)
+    d = torch.empty((n, c, 2 * h, 2 * w), dtype=g.dtype, device=g.device, memory_format=layout)
+    nhwc = layout == torch.channels_last
+    lib = load_library()
+    launch, sizes = ((lib.down_pool_nhwc_bwd, (n * h, w, c)) if nhwc
+                     else (lib.down_pool_bwd, (n * c * h, w)))
+    err = launch(g.data_ptr(), d.data_ptr(), *sizes, _DTYPE_CODE[g.dtype], g.device.index,
+                 torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"down_pool_bwd launch failed with CUDA error {err}")
     bwd_launches += 1
+    nhwc_bwd_launches += nhwc
     return d
 
 
 @torch.library.custom_op("scrabblegan::down_pool", mutates_args=(), device_types="cuda")
 def down_pool(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(pool(a) + pool(b)) as a registered op, b optional: on CUDA the
-    kernel (NCHW-contiguous float32 or bfloat16; anything else raises), on
-    the CPU the plain version; differentiable through `down_pool_bwd`."""
+    kernel (float32 or bfloat16, NCHW-contiguous or channels_last-contiguous,
+    the output in that layout; anything else raises), on the CPU the plain
+    version; differentiable through `down_pool_bwd`."""
     return _launch_forward(a, b)
 
 
@@ -138,14 +160,16 @@ def _down_pool_cpu(a, b=None):
 def _down_pool_fake(a, b=None):
     _check(a, b)
     n, c, h, w = a.shape
-    return a.new_empty((n, c, h // 2, w // 2))
+    return torch.empty((n, c, h // 2, w // 2), dtype=a.dtype, device=a.device,
+                       memory_format=memory_format(a))
 
 
 @torch.library.custom_op("scrabblegan::down_pool_bwd", mutates_args=(), device_types="cuda")
 def down_pool_bwd(g: torch.Tensor) -> torch.Tensor:
     """The pool's backward as a registered op: g (N, C, H, W) -> the
-    (N, C, 2H, 2W) gradient of each pooled input; on CUDA the kernel (g
-    NCHW-contiguous), on the CPU the plain version."""
+    (N, C, 2H, 2W) gradient of each pooled input, in g's layout; on CUDA the
+    kernel (g NCHW-contiguous or channels_last-contiguous), on the CPU the
+    plain version."""
     return _launch_backward(g)
 
 
@@ -157,15 +181,18 @@ def _down_pool_bwd_cpu(g):
 @down_pool_bwd.register_fake
 def _down_pool_bwd_fake(g):
     n, c, h, w = g.shape
-    return g.new_empty((n, c, 2 * h, 2 * w))
+    return torch.empty((n, c, 2 * h, 2 * w), dtype=g.dtype, device=g.device,
+                       memory_format=memory_format(g))
 
 
 def _setup_context(ctx, inputs, output):
     ctx.two = inputs[1] is not None
+    ctx.layout = memory_format(inputs[0])
 
 
 def _backward(ctx, grad):
-    d = down_pool_bwd(grad.contiguous())  # a gradient may arrive strided (a sum's backward)
+    # a gradient may arrive strided (a sum's backward); the inputs' layout
+    d = down_pool_bwd(grad.contiguous(memory_format=ctx.layout))
     return d, d if ctx.two else None
 
 

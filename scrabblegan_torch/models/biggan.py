@@ -1,4 +1,5 @@
-"""BigGAN at 128 x 128: the class-conditional G and the projection D, NCHW.
+"""BigGAN at 128 x 128: the class-conditional G and the projection D, their
+conv trunks channels_last on a card.
 
 Brock, Donahue, Simonyan, "Large Scale GAN Training for High Fidelity Natural
 Image Synthesis" (arXiv:1809.11096), as the authors' code builds it
@@ -20,6 +21,12 @@ layers with BigGAN's options (ops/blocks.py, ops/layers.py, ops/attention.py):
 
 The convs and the attention compute in `dtype` (parameters float32), the
 attention core on the CUDA kernels at (Ca, Cg) = (C/8, C/2) on a card.
+
+Each network lays its activations out at its entry (G after the linear's
+view, D with the cast of its input) in `trunk_format`: channels_last on a
+card, the layout cuDNN computes its bf16 convs in, so that it converts no
+activation to NHWC and back. The blocks keep the layout they are given
+(ops/blocks.py, the pool of kernels/pool.py, ops/attention.py).
 """
 
 from __future__ import annotations
@@ -33,6 +40,14 @@ from scrabblegan_torch.config import BigGANConfig, Config
 from scrabblegan_torch.ops.attention import NonLocalBlock
 from scrabblegan_torch.ops.blocks import BatchNorm, ResNetBlockDown, ResNetBlockUp
 from scrabblegan_torch.ops.layers import SNConv, SNDense, SNEmbedding
+
+
+def trunk_format(device: torch.device) -> torch.memory_format:
+    """The layout of the networks' activations on `device`: channels_last on
+    a card, where cuDNN would otherwise convert every NCHW conv input to NHWC
+    and the output back; NCHW on the CPU, where the port is held to the plain
+    NCHW reference in float32 and another layout would sum in another order."""
+    return torch.channels_last if device.type == "cuda" else torch.contiguous_format
 
 
 class BigGANGenerator(nn.Module):
@@ -65,6 +80,7 @@ class BigGANGenerator(nn.Module):
         zs = z.float().split(self.z_chunk, dim=1)
         e = self.shared(y)
         h = self.linear(zs[0]).view(z.shape[0], -1, self.bottom, self.bottom)
+        h = h.contiguous(memory_format=trunk_format(h.device))
         for i, block in enumerate(self.blocks):
             h = block(h, torch.cat([e, zs[i + 1]], dim=1))
             if i == self.attn_after:
@@ -96,7 +112,7 @@ class BigGANDiscriminator(nn.Module):
         self.embed = SNEmbedding(spec.n_classes, outs[-1], **head)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        h = x.to(self.dtype)
+        h = x.to(self.dtype, memory_format=trunk_format(x.device))
         for i, block in enumerate(self.blocks):
             h = block(h)
             if i == self.attn_after:

@@ -21,6 +21,12 @@ All compute the same function on one parameter tree:
   residual in one CUDA kernel on a card.
 With `use_kernel` False every dataflow takes the plain path, as JAX's blocks
 built without `use_pallas` do.
+
+A channels_last x (BigGAN's trunks) keeps its layout through 'nhwc1' and
+'nhwc': the projections come out channels_last, so theta and the pooled phi
+and g are copied into the dense per-batch (C, N) blocks the kernels take,
+and the core's output is laid out channels_last for the out conv. 'packed'
+and 'fused' take such an x as an NCHW copy.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 from scrabblegan_torch.kernels.attention import attention_reference, nonlocal_attention_packed
 from scrabblegan_torch.kernels.fused_block import fused_nonlocal_block
 from scrabblegan_torch.ops.layers import FlaxLeaf, SNConv
+from scrabblegan_torch.utils.layout import memory_format
 
 DATAFLOWS = ("nhwc", "nhwc1", "packed", "fused")
 
@@ -79,6 +86,7 @@ class NonLocalBlock(nn.Module):
         b, c, h, w = x.shape
         c_attn = c // 8
         if self.use_kernel and dataflow in ("packed", "fused"):
+            x = x.contiguous()
             w_theta, w_phi, w_g, w_out = (conv.normalized_weight()[:, :, 0, 0] for conv in
                                           (self.theta, self.phi, self.g, self.out))
             pooled = F.max_pool2d(F.conv2d(x, torch.cat([w_phi, w_g])[:, :, None, None]), 2)
@@ -94,6 +102,16 @@ class NonLocalBlock(nn.Module):
         pooled = F.max_pool2d(proj[:, c_attn:], 2)  # (B, Ca + Cg, H/2, W/2)
         phiT = pooled[:, :c_attn].reshape(b, c_attn, -1)
         gT = pooled[:, c_attn:].reshape(b, c // 2, -1)
-        core = nonlocal_attention_packed if self.use_kernel else attention_reference
-        attn_g = core(thetaT, phiT, gT).reshape(b, -1, h, w)
+        if self.use_kernel:
+            attn_g = nonlocal_attention_packed(*(_dense(t) for t in (thetaT, phiT, gT)))
+            attn_g = attn_g.reshape(b, -1, h, w).contiguous(memory_format=memory_format(x))
+        else:
+            attn_g = attention_reference(thetaT, phiT, gT).reshape(b, -1, h, w)
         return self.sigma.to(self.dtype) * self.out(attn_g) + x
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t (B, C, N) with each batch's (C, N) block dense, as the kernels take
+    it: t itself where it is (an NCHW projection's view, batch-strided), a
+    copy where a channels_last projection strides it."""
+    return t if t.stride(2) == 1 and t.stride(1) == t.shape[2] else t.contiguous()

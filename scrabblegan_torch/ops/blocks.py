@@ -33,6 +33,7 @@ from scrabblegan_torch.kernels.pool import down_pool
 from scrabblegan_torch.ops.layers import (FlaxLeaf, SNConv, SNConvTranspose, SNDense,
                                           propose_stats)
 from scrabblegan_torch.parallel.mesh import global_moments
+from scrabblegan_torch.utils.layout import memory_format
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99
@@ -189,7 +190,10 @@ class ResNetBlockDown(nn.Module):
     and widths, which is every shape the networks give it; an odd one
     raises rather than silently pooling differently. The pools and the sum of
     the two pooled paths are `kernels/pool.py`'s `down_pool`: on a card one
-    CUDA pass forward and one backward, on the CPU the plain composition."""
+    CUDA pass forward and one backward, on the CPU the plain composition.
+    The pool takes the layout of the block's input: channels_last where x is
+    channels_last and not NCHW-contiguous (BigGAN's D), else NCHW (every
+    ScrabbleGAN network, one-channel images included)."""
 
     def __init__(self, in_features: int, features: int, is_last_block: bool = False,
                  use_sn: bool = True, dtype: torch.dtype = torch.float32, device=None,
@@ -209,21 +213,22 @@ class ResNetBlockDown(nn.Module):
         h = self.conv2(torch.relu(h))
         if self.is_last_block:
             return h + (x if self.skip is None else self.skip(x))
+        layout = memory_format(x)
         if self.preactivation:
-            return down_pool(_nchw(h), _nchw(self.skip(x)))
-        return down_pool(_nchw(h)) + self.skip(down_pool(_nchw(x)))
+            return down_pool(_laid_out(h, layout), _laid_out(self.skip(x), layout))
+        return down_pool(_laid_out(h, layout)) + self.skip(down_pool(_laid_out(x, layout)))
 
 
-def _nchw(t: torch.Tensor) -> torch.Tensor:
-    """t as the NCHW-contiguous tensor the pool takes: a copy only where a
-    conv returned another layout (a conv of one-channel images, an NCHW view
-    of NHWC, comes back channels_last). The copy's gradient then goes back
-    in t's layout, as `F.avg_pool2d`'s backward gave it, so the conv's
-    backward sums what it summed before, in the same order."""
-    if t.is_contiguous():
+def _laid_out(t: torch.Tensor, layout: torch.memory_format) -> torch.Tensor:
+    """t as the tensor the pool takes in `layout`: a copy only where a conv
+    returned another layout (a conv of one-channel images, an NCHW view of
+    NHWC, comes back channels_last). The copy's gradient then goes back in
+    t's layout, as `F.avg_pool2d`'s backward gave it, so the conv's backward
+    sums what it summed before, in the same order."""
+    if t.is_contiguous(memory_format=layout):
         return t
     if t.requires_grad:
-        layout = (torch.channels_last if t.is_contiguous(memory_format=torch.channels_last)
-                  else torch.contiguous_format)
-        t.register_hook(lambda g: g.contiguous(memory_format=layout))
-    return t.contiguous()
+        own = (torch.channels_last if t.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        t.register_hook(lambda g: g.contiguous(memory_format=own))
+    return t.contiguous(memory_format=layout)

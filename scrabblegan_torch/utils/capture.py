@@ -27,7 +27,8 @@ CAPTURE_LOCK = threading.Lock()
 # the kernels' counters (module, attribute), kept exact under replay
 COUNTERS = ((attention, "launches"), (attention, "bwd_launches"),
             (attention, "bwd_dout_copies"), (fused_block, "launches"),
-            (pool, "launches"), (pool, "bwd_launches"))
+            (pool, "launches"), (pool, "bwd_launches"), (pool, "nhwc_launches"),
+            (pool, "nhwc_bwd_launches"))
 
 
 def counter_values() -> tuple[int, ...]:

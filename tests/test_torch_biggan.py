@@ -16,7 +16,14 @@ and the CLI's steps at ch 8 from an .npz, resumed from their checkpoint.
 Card (`card`, skips without one; `python -m pytest --noconftest -m card
 tests/test_torch_biggan.py`): the forward and backward kernels at (12, 48)
 and (24, 96), and at (8, 32), against the plain core on the card, within
-the bf16 tolerances of tests/test_kernels.py (rtol = atol = 2e-2).
+the bf16 tolerances of tests/test_kernels.py (rtol = atol = 2e-2); G and D
+at the published widths in bf16 with their channels_last trunks against the
+same networks laid out NCHW (forward and backward), and in float32, both
+layouts, against the plain reference, with no cuDNN layout transform in
+their profile; the pool launches of a captured step, all of them the pool's
+channels_last instance. The CPU tests run the networks NCHW: channels_last
+there sums in other orders, which the three steps' float32 bounds do not
+leave room for.
 """
 
 from __future__ import annotations
@@ -53,8 +60,8 @@ def card_operands(b, ca, cg, q, k, device, seed=0):
 
 
 def assert_close(got, want):
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(), rtol=2e-2, atol=2e-2)
 
 
 SHAPES = [(4, 4096, 1024),  # BigGAN's blocks at 64 x 64: Q 4096, K 1024
@@ -86,6 +93,202 @@ def test_other_widths_and_float32_at_the_new_widths_raise_on_the_card(card):
             attention.attention_fwd(th, ph, g)
         with pytest.raises(ValueError, match="the CUDA kernels take"):
             attention.attention_bwd(th, ph, g, d)
+
+
+TRANSFORMS = r"nchwToNhwc|nhwcToNchw"  # cuDNN's layout conversions (perfbench/trace.py)
+
+
+def card_networks(device, batch, plain_float32=False):
+    """G and D of configs/biggan128.json (bf16, published widths) on `device`
+    with the benchmark's seeded weights, and a batch's labels, z and images;
+    `plain_float32`: the same networks computing in float32 on the plain
+    attention core."""
+    from perfbench import weights
+    from scrabblegan_torch.models.build import build_models
+
+    cfg = load_config(CONFIG)
+    if plain_float32:
+        cfg = dataclasses.replace(cfg, shared=dataclasses.replace(
+            cfg.shared, dtype="float32", use_pallas_attention=False))
+    models = build_models(cfg, device, load_biggan(CONFIG))
+    mods = dict(zip("gd", (m for _, m in models.items())))
+    tensors = weights.make({n: weights.specs(m) for n, m in mods.items()}, 7, device)
+    for net, module in mods.items():
+        weights.load(module, tensors[net])
+    gen = torch.Generator(device=device).manual_seed(7)
+    y = torch.randint(0, 1000, (batch,), generator=gen, device=device)
+    z = torch.randn(batch, 120, generator=gen, device=device)
+    x = torch.rand(batch, 3, 128, 128, generator=gen, device=device) * 2 - 1
+    return mods, y, z, x
+
+
+def g_and_d(mods, y, z, x):
+    """G's images, D's logits on them and on x, and the gradients of the
+    logits' sum for every parameter."""
+    img = mods["g"](y, z)
+    logits = torch.cat([mods["d"](img, y), mods["d"](x, y)])
+    params = [p for net in "gd" for p in mods[net].parameters()]
+    return img, logits, torch.autograd.grad(logits.sum(), params)
+
+
+def reference_g_and_d(mods, y, z, x):
+    """`g_and_d` in perfbench/reference/biggan.py (float32, NCHW) on the
+    tensors of the port's G and D."""
+    import json
+
+    from perfbench.reference import biggan as ref
+
+    with open(CONFIG) as f:
+        spec = json.load(f)["biggan"]
+    t = {net: {k: v.detach().clone() for k, v in mods[net].state_dict().items()}
+         for net in "gd"}
+    params = [t[net][k].requires_grad_() for net in "gd" for k, _ in mods[net].named_parameters()]
+    img = ref.generator(ref._Net(t["g"], train=True), spec, y, z)
+    logits = torch.cat([ref.discriminator(ref._Net(t["d"], train=True), spec, img, y),
+                        ref.discriminator(ref._Net(t["d"], train=True), spec, x, y)])
+    return img.detach(), logits.detach(), torch.autograd.grad(logits.sum(), params)
+
+
+def rel_gap(got, want) -> float:
+    """|got - want| / |want| over whole tensors (or lists of them)."""
+    got, want = ([t.detach().float().flatten() for t in ts] for ts in (got, want))
+    return float(torch.cat(got).sub(torch.cat(want)).norm() / torch.cat(want).norm())
+
+
+@pytest.mark.card
+def test_channels_last_networks_match_nchw_on_the_card(card, monkeypatch):
+    """G and D in bf16, channels_last and laid out NCHW (the entry's layout
+    patched), each against the plain reference (perfbench/reference/
+    biggan.py, float32, NCHW, TF32 off) on the same tensors: G's images, D's
+    logits and each network's gradient. The two bf16 layouts round in other
+    orders (train-mode batch norm at batch 8 spreads that over whole images,
+    G's gradient read 7e-2 apart between them), so channels_last is held to
+    be no further from float32 than NCHW is, within half as much again and
+    5e-3: a fault in a layout reads as far as the quantity itself. Leaves
+    whose float32 gradient is under 1e-3 of their network's median leaf (the
+    biases ahead of a batch norm, their bf16 gradient round-off) are left
+    out."""
+    from scrabblegan_torch.models import biggan
+
+    mods, y, z, x = card_networks(card, 8)
+    got = g_and_d(mods, y, z, x)
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    monkeypatch.setattr(biggan, "trunk_format", lambda device: torch.contiguous_format)
+    nchw = g_and_d(mods, y, z, x)
+    assert nchw[0].is_contiguous()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ref = reference_g_and_d(mods, y, z, x)
+    n_g = len(list(mods["g"].parameters()))
+    parts = {"images": lambda r: [r[0]], "logits": lambda r: [r[1]]}
+    for net, leaves in (("g", slice(0, n_g)), ("d", slice(n_g, None))):
+        norms = torch.stack([t.float().norm() for t in ref[2][leaves]])
+        moved = [i for i, n in enumerate(norms.tolist()) if n >= 1e-3 * float(norms.median())]
+        parts[f"grad.{net}"] = lambda r, leaves=leaves, moved=moved: [r[2][leaves][i]
+                                                                       for i in moved]
+    gaps = {name: (rel_gap(pick(got), pick(ref)), rel_gap(pick(nchw), pick(ref)))
+            for name, pick in parts.items()}
+    assert all(cl <= 1.5 * nc + 5e-3 for cl, nc in gaps.values()), gaps
+
+
+@pytest.mark.card
+def test_channels_last_networks_match_the_reference_on_the_card(card, monkeypatch):
+    """G and D in float32 on the plain attention core (TF32 off) at the
+    published widths, batch 8, their trunks channels_last as on any card and
+    then laid out NCHW (the entry's layout patched), each against the plain
+    reference (perfbench/reference/biggan.py, float32, NCHW) on the same
+    tensors: G's images and D's logits within 1e-4 of their scale (the CPU
+    forwards' bound), and each network's gradient of the logits' sum within
+    2e-3 (the CPU first step's bound on a leaf, here over the network's
+    leaves whose reference gradient is at least 1e-3 of the median leaf).
+    Both layouts meet the same bounds, so the layout the card runs is held
+    to an implementation that shares no code with it. The blocks up to each
+    network's non-local block run channels_last (read by forward hooks);
+    the plain core's non-local block, as the DCGAN D runs it, keeps no
+    layout, so the trunk may go on in NCHW after it."""
+    from scrabblegan_torch.models import biggan
+    from scrabblegan_torch.utils.layout import memory_format
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    mods, y, z, x = card_networks(card, 8, plain_float32=True)
+    want = reference_g_and_d(mods, y, z, x)
+    layouts = []
+    for net in "gd":
+        for block in mods[net].blocks[:mods[net].attn_after + 1]:
+            block.register_forward_hook(lambda m, args, out: layouts.append(memory_format(out)))
+    runs = {"channels_last": g_and_d(mods, y, z, x)}
+    assert layouts and set(layouts) == {torch.channels_last}
+    layouts.clear()
+    monkeypatch.setattr(biggan, "trunk_format", lambda device: torch.contiguous_format)
+    runs["nchw"] = g_and_d(mods, y, z, x)
+    assert layouts and set(layouts) == {torch.contiguous_format}
+    n_g = len(list(mods["g"].parameters()))
+    gaps = {}
+    for layout, got in runs.items():
+        gaps[layout] = {name: float((got[i].detach() - want[i]).abs().max() / want[i].abs().max())
+                        for i, name in ((0, "images"), (1, "logits"))}
+        for net, leaves in (("g", slice(0, n_g)), ("d", slice(n_g, None))):
+            norms = [float(t.norm()) for t in want[2][leaves]]
+            moved = [i for i, n in enumerate(norms) if n >= 1e-3 * float(np.median(norms))]
+            gaps[layout][f"grad.{net}"] = rel_gap([got[2][leaves][i] for i in moved],
+                                                  [want[2][leaves][i] for i in moved])
+    assert all(g["images"] <= 1e-4 and g["logits"] <= 1e-4 and g["grad.g"] <= 2e-3
+               and g["grad.d"] <= 2e-3 for g in gaps.values()), gaps
+
+
+@pytest.mark.card
+def test_channels_last_networks_run_no_layout_transform(card):
+    """G and D forward and backward in channels_last launch none of cuDNN's
+    NCHW<->NHWC conversion kernels (the profiler's trace), and pool through
+    the channels_last instance alone."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from scrabblegan_torch.kernels import pool
+
+    mods, y, z, x = card_networks(card, 8)
+    g_and_d(mods, y, z, x)  # cuDNN's first calls outside the trace
+    before = (pool.launches, pool.nhwc_launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g_and_d(mods, y, z, x)
+        torch.cuda.synchronize(card)
+    transforms = sorted({e.name for e in prof.events() if re.search(TRANSFORMS, e.name)})
+    assert transforms == []
+    assert pool.launches - before[0] == pool.nhwc_launches - before[1] == 12
+
+
+@pytest.mark.card
+def test_captured_step_pools_channels_last(card):
+    """A captured BigGAN step (batch 8) pools through the channels_last
+    instance only: 18 forward and 16 backward launches a step (D's blocks 0-4
+    in 3 passes, block 0 twice; the input's pool backward only in the pass
+    for G), in the eager warm-up steps and on every replay."""
+    from scrabblegan_torch.data.classes import synthetic_classes
+    from scrabblegan_torch.kernels import pool
+    from scrabblegan_torch.train.classes import class_feed
+    from scrabblegan_torch.train.graphs import WARMUP_STEPS
+    from scrabblegan_torch.train.state import create_train_state
+    from scrabblegan_torch.train.step import make_chunked_train_step
+
+    cfg, spec = load_config(CONFIG), load_biggan(CONFIG)
+    cfg = dataclasses.replace(cfg, shared=dataclasses.replace(cfg.shared, batch_size=8))
+    state = create_train_state(cfg, 3, card, spec)
+    chunk = make_chunked_train_step(cfg, state.models)
+    images, labels = synthetic_classes(16, spec.resolution, spec.n_classes, 3)
+    calls = WARMUP_STEPS + 1 + 3  # the eager warm-up, the capture, 3 replays
+    feed = class_feed(cfg, spec, images, labels, 8, 3, calls, card)
+    counts = []
+    for _ in range(calls):
+        batch = feed.get()
+        pool.launches = pool.bwd_launches = pool.nhwc_launches = pool.nhwc_bwd_launches = 0
+        chunk(state, batch)
+        torch.cuda.synchronize(card)
+        counts.append((pool.launches, pool.bwd_launches, pool.nhwc_launches,
+                       pool.nhwc_bwd_launches))
+    eager, replays = counts[:WARMUP_STEPS], counts[WARMUP_STEPS + 1:]
+    assert set(eager) == set(replays) == {(18, 16, 18, 16)}, counts
 
 
 # ---- the CPU ---------------------------------------------------------------------
